@@ -5,8 +5,8 @@
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device: the card's name, count and power limit (no CUDA device: exit 1);
-2. build: the CUDA kernel and the three host libraries, from the sources
-   in this checkout, all compilers started together;
+2. build: the two CUDA kernels and the three host libraries, from the
+   sources in this checkout, all compilers started together;
 3. kernel: the fused down block against its plain PyTorch version at the
    three production block shapes (B=8, f32 and bf16), then timed at B=200
    (CUDA events) beside its plain version and its bound on this card;
@@ -15,9 +15,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
    with exactly 3 kernel launches;
 5. plate: ``run_plate`` on a synthetic 1024^2, Z=8 uint8 plate with the
    shipped checkpoint and TTA 8, warmed on one plate, then timed twice;
-   the launch counts of this run go into the kernels line.
+6. focus_check: the focus-stacking kernel against its plain version for
+   uint8 (equal), uint16 and float32 (near-tie rule), ragged depths,
+   partial tiles and images smaller than the kernel's support;
+7. focus_time: that kernel at uint8 (1, 8, 1024, 1024) and (8, 8, 1024,
+   1024) beside its plain version, the conv2d (cuDNN) composition, an
+   empty-sized launch and its bound on this card;
+8. zproj: eight 8 x 1024^2 stacks through ``compute_zproj.project`` (all
+   five methods) and the ``fs`` projections through
+   ``compute_cell_area.analyze_images`` without and with well detection;
+9. plate_fs: ``run_plate(proj_method="fs", detect_well=True)`` on those
+   stacks with ragged depths, warmed once, timed once.
 
-The last line is {"ok": true, "device": {...}}.
+The launch counts of phases 5, 8 and 9 go into the kernels line. The last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -42,6 +53,18 @@ SHIPPED_CFG = "model_training/binary_segmentation/configs/unet_patch_segmentor_1
 # (H, C, F) of the production down blocks: patch 320, filters 64-128-256-512
 BLOCK_SHAPES = [(160, 64, 128), (80, 128, 256), (40, 256, 512)]
 TOL = {torch.float32: 2e-5}  # bf16: 2**-6 of the output's largest magnitude
+# focus stacking, per pixel and slice: multiply-adds of the taps (blur 2 x 5,
+# Laplacian 2 x (3 + 5)), two operations each, and the compare
+FOCUS_FLOPS = 2 * (2 * 5 + 2 * (3 + 5)) + 1
+# (dtype, (B, Z, H, W), z_counts, largest value) held against the plain version
+FOCUS_CASES = [
+    ("uint8", (1, 8, 1024, 1024), None, 255), ("uint8", (4, 8, 512, 512), (8, 5, 1, 3), 255),
+    ("uint16", (1, 12, 1024, 1024), None, 4095), ("uint16", (1, 4, 40, 40), None, 65535),
+    ("float32", (1, 5, 100, 150), None, 255), ("float32", (1, 3, 64, 64), None, 255),
+    ("float32", (1, 8, 33, 257), None, 255), ("float32", (1, 3, 5, 5), None, 1),
+    ("float32", (1, 3, 2, 3), None, 1),
+]
+PLATE_FS_Z_COUNTS = (8, 8, 6, 8, 5, 8, 8, 7)
 
 
 def emit(phase: str, **fields) -> None:
@@ -91,7 +114,10 @@ def block_work(b: int, h: int, c: int, f: int, dtype: torch.dtype) -> dict:
 def phase_build():
     from tmat_torch import build
 
-    jobs = {"down_block": lambda: build.cuda_library("down_block")}
+    from tmat_torch.ops import focus_stack
+
+    jobs = {"down_block": lambda: build.cuda_library("down_block"),
+            "focus_stack": focus_stack.library_path}
     for name in ("labeling", "dmtgraph", "morse"):
         jobs[name] = lambda n=name: build.host_library(n)
     t0 = time.perf_counter()
@@ -99,7 +125,8 @@ def phase_build():
         futures = {name: pool.submit(job) for name, job in jobs.items()}
         paths = {name: str(f.result()) for name, f in futures.items()}
     seconds = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in build.logs.get("down_block", "").splitlines()
+    ptxas = [ln.strip() for name in ("down_block", "focus_stack")
+             for ln in build.logs.get(name, "").splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit("build", seconds=round(seconds, 3), libraries=paths, ptxas=ptxas)
 
@@ -208,6 +235,7 @@ def phase_plate(seg, n_wells: int, rng, device):
         runs.append((res, n_wells / (time.perf_counter() - t0)))
         timers.append(res.pop("_timer"))
     launches = db.launches  # ... and ends here
+    seg._pred_fn = model_fn
     (r1, wps1), (r2, wps2) = runs
     print(timers[-1].report(), flush=True)
     if r1 != r2:
@@ -219,6 +247,213 @@ def phase_plate(seg, n_wells: int, rng, device):
     emit("plate", wells=n_wells, size=[8, 1024, 1024], wells_per_sec=[wps1, wps2], warm_s=warm_s,
          unet_forwards=forwards[0], max_memory_allocated=torch.cuda.max_memory_allocated(),
          stage_totals_s=timers[-1].totals, results=r1)
+    return launches
+
+
+def focus_work(z_counts, h: int, w: int, itemsize: int) -> dict:
+    """What one focus-stacking call must do and move: each stack's first
+    ``z_count`` slices read once and one projection written, each in its
+    own type; FOCUS_FLOPS float32 operations per pixel and slice read. The
+    halo (a 40 x 40 tile read for a 32 x 32 output) is stated apart: it is
+    read again, mostly from L2, and is no part of the bound."""
+    slices, stacks = int(np.sum(z_counts)), len(z_counts)
+    nbytes = (slices + stacks) * h * w * itemsize + 4 * stacks
+    flops = slices * h * w * FOCUS_FLOPS
+    ops_ms, bytes_ms = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"flops": flops, "bytes": nbytes, "halo_bytes": int(slices * h * w * itemsize * (40 * 40 / 32 ** 2 - 1)),
+            "ops_ms": ops_ms, "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def phase_focus_check(rng, device):
+    from tmat_torch.ops import focus_stack as fs
+
+    cases = []
+    for dtype, shape, z_counts, top in FOCUS_CASES:
+        stacks = torch.from_numpy((rng.rand(*shape) * top).astype(dtype)).to(device)
+        out = fs.focus_stack(stacks, z_counts)
+        torch.cuda.synchronize()
+        n_diff, far, err = fs.compare_with_plain(out, stacks, z_counts)
+        cases.append({"dtype": dtype, "shape": list(shape), "z_counts": z_counts,
+                      "mismatched_pixels": n_diff, "not_near_ties": far, "max_abs_err": err})
+        # uint8: equal. Others: at most 1e-4 of the pixels, each a near-tie
+        allowed = 0 if dtype == "uint8" else 1e-4 * out.numel()
+        if far or n_diff > allowed or out.dtype != stacks.dtype:
+            raise AssertionError(f"focus kernel disagrees with its plain version: {cases[-1]}")
+    emit("focus_check", cases=cases)
+    return cases
+
+
+def phase_focus_time(rng, device):
+    from tmat_torch.ops import focus_stack as fs
+    from tmat_torch.ops.zproj import focus_stack_conv
+
+    timings = []
+    for b in (1, 8):
+        # 64 MB of stacks in turn, more than the 50 MB L2, so each call reads device memory
+        pool = [torch.from_numpy(rng.randint(0, 256, (b, 8, 1024, 1024)).astype(np.uint8)).to(device)
+                for _ in range(8 // b)]
+        turn = [0]
+
+        def nxt():
+            turn[0] += 1
+            return pool[turn[0] % len(pool)]
+
+        zc = [8] * b
+        timings.append({
+            "shape": [b, 8, 1024, 1024], "dtype": "uint8",
+            "ms": cuda_ms(lambda: fs.focus_stack(nxt(), zc), 20),
+            "plain_ms": cuda_ms(lambda: fs.focus_stack_plain(nxt(), zc), 3),
+            "conv_ms": cuda_ms(lambda: focus_stack_conv(nxt(), zc), 3),
+            **focus_work(zc, 1024, 1024, 1),
+        })
+    tiny = torch.zeros((1, 1, 1, 1), dtype=torch.uint8, device=device)
+    launch_ms = cuda_ms(lambda: fs.focus_stack(tiny), 200)
+    emit("focus_time", shapes=timings, empty_launch_ms=launch_ms)
+    return timings, launch_ms
+
+
+def focus_plate(n_wells: int, rng, size: int = 1024, n_z: int = 8):
+    """``synthetic_plate``'s wells for focus stacking and well detection:
+    each well a bright disc on a dark frame, its ring and bar sharp in one
+    slice (among the first five, so that ragged depths keep it) and
+    Gaussian-blurred, more with the distance, in the others. Returns the
+    uint8 (n_wells, n_z, size, size) plate, the sharp slice of each well
+    and the ring masks."""
+    from scipy import ndimage
+
+    rr, cc = np.mgrid[0:size, 0:size]
+    radius = np.sqrt((rr - size / 2) ** 2 + (cc - size / 2) ** 2)
+    well = radius <= 0.48 * size
+    plate = np.empty((n_wells, n_z, size, size), np.uint8)
+    sharp, rings = [], []
+    for i in range(n_wells):
+        ring = np.abs(radius - (size / 3.5 + 10 * i)) < 1.5  # thin: a flat top has no Laplacian
+        vessels = np.zeros((size, size), np.float32)
+        vessels[ring] = 120
+        vessels[size // 2 - 2 : size // 2 + 2, size // 4 : -size // 4] = 100
+        z_sharp = i % 5
+        for z in range(n_z):
+            img = vessels if z == z_sharp else ndimage.gaussian_filter(vessels, 2.0 * abs(z - z_sharp))
+            img = np.where(well, img + 100 + 5 * rng.rand(size, size).astype(np.float32),
+                           2 * rng.rand(size, size).astype(np.float32))
+            plate[i, z] = np.clip(img, 0, 255).astype(np.uint8)
+        sharp.append(z_sharp)
+        rings.append(ring)
+    return plate, sharp, rings
+
+
+def phase_zproj(plate, sharp, rings, device):
+    from tmat_torch.ops import focus_stack as fs
+    from tmat_torch.ops.zproj import PROJ_METHODS, proj_host
+    from tmat_torch.tools import compute_cell_area as area_tool, compute_zproj as zproj_tool
+
+    with open(Path(__file__).resolve().parent / "config" / "default_cell_area_computation.json") as f:
+        cfg = json.load(f)
+
+    def run():
+        projs = {m: [zproj_tool.project(stack, m, device) for stack in plate] for m in PROJ_METHODS}
+        small = [area_tool.downsample(p, cfg["dsamp_size"], device) for p in projs["fs"]]
+        plain = area_tool.analyze_images(small, cfg["sd_coef"], False, cfg["rs_seed"], device)
+        wells = area_tool.analyze_images(small, cfg["sd_coef"], True, cfg["rs_seed"], device)
+        return projs, plain, wells
+
+    fs.launches = 0  # the zproj and cell-area path starts here
+    t0 = time.perf_counter()
+    projs, plain, wells = run()
+    first_s = time.perf_counter() - t0
+    launches = fs.launches  # ... and ends here
+    if launches != len(plate):
+        raise AssertionError(f"{launches} focus kernel launches for {len(plate)} fs projections")
+
+    ring_share = []
+    for stack, proj, z, ring in zip(plate, projs["fs"], sharp, rings):
+        if proj.dtype != np.uint8 or proj.shape != stack.shape[1:]:
+            raise AssertionError(f"fs projection is {proj.dtype} {proj.shape}")
+        ring_share.append(float((proj[ring] == stack[z][ring]).mean()))
+    if min(ring_share) < 0.95:
+        raise AssertionError(f"fs picked the sharp slice on {ring_share} of the ring pixels, under 0.95")
+    for m in ("max", "min", "avg", "med"):
+        for stack, proj in zip(plate, projs[m]):
+            if not np.array_equal(proj, proj_host(stack, m)):
+                raise AssertionError(f"{m} projection differs from the host projection")
+    areas, well_areas = plain[2], wells[2]
+    coverage = [float((wm > 0).mean()) for wm in wells[1]]
+    if not all(0 < a < 1 for a in areas + well_areas):
+        raise AssertionError(f"an area fraction outside (0, 1): {areas} {well_areas}")
+    if min(coverage) < 0.4:
+        raise AssertionError(f"a detected well mask covers under 40% of the frame: {coverage}")
+
+    projs2, plain2, wells2 = run()
+    same = (all(np.array_equal(a, b) for m in projs for a, b in zip(projs[m], projs2[m]))
+            and plain2[2] == areas and wells2[2] == well_areas
+            and all(np.array_equal(a, b) for a, b in zip(wells[1], wells2[1]))
+            and all(np.array_equal(a, b) for a, b in zip(plain[0] + wells[0], plain2[0] + wells2[0])))
+    if not same:
+        raise AssertionError("two runs of the zproj and cell-area cores differ")
+
+    t0 = time.perf_counter()
+    for stack in plate:
+        zproj_tool.project(stack, "fs", device)
+    with_copy = len(plate) / (time.perf_counter() - t0)
+    resident = [torch.from_numpy(stack).to(device) for stack in plate]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for stack in resident:
+        PROJ_METHODS["fs"](stack)
+    torch.cuda.synchronize()
+    on_device = len(plate) / (time.perf_counter() - t0)
+    emit("zproj", stacks=len(plate), size=list(plate.shape[1:]), fs_launches=launches, first_run_s=first_s,
+         fs_stacks_per_sec_with_copy=with_copy, fs_stacks_per_sec_on_device=on_device,
+         sharp_slice_share_on_ring=ring_share, area=areas, area_in_well=well_areas,
+         well_mask_coverage=coverage)
+    return launches
+
+
+def phase_plate_fs(seg, plate, device):
+    from tmat_torch.ops import down_block as db, focus_stack as fs
+    from tmat_torch.tools.plate_pipeline import run_plate
+
+    config = {"image_width_microns": 1200.0}
+    n_wells = len(plate)
+    z_counts = [PLATE_FS_Z_COUNTS[i % len(PLATE_FS_Z_COUNTS)] for i in range(n_wells)]
+    plate = plate.copy()
+    for i, z in enumerate(z_counts):
+        plate[i, z:] = 0
+    ids = [f"W{i}" for i in range(n_wells)]
+    forwards = [0]
+    model_fn = seg._pred_fn
+
+    def counted(batch):
+        forwards[0] += 1
+        return model_fn(batch)
+
+    seg._pred_fn = counted
+    kw = dict(proj_method="fs", detect_well=True, z_counts=z_counts, device=device)
+    t0 = time.perf_counter()
+    warm = run_plate(plate, ids, seg, config, **kw)
+    warm_s = time.perf_counter() - t0
+    warm.pop("_timer")
+    torch.cuda.synchronize()
+    forwards[0] = 0
+    db.launches = fs.launches = 0  # the fs plate's run starts here
+    t0 = time.perf_counter()
+    res = run_plate(plate, ids, seg, config, **kw)
+    wps = n_wells / (time.perf_counter() - t0)
+    launches = {"down_block": db.launches, "focus_stack": fs.launches}  # ... and ends here
+    seg._pred_fn = model_fn
+    timer = res.pop("_timer")
+    print(timer.report(), flush=True)
+    if res != warm:
+        raise AssertionError(f"two runs of the same fs plate differ:\n{warm}\n{res}")
+    if not all(0 < a < 100 and np.isfinite(a) for a in res["area_pct"]):
+        raise AssertionError(f"area_pct outside (0, 100): {res['area_pct']}")
+    # one well is one chunk: one focus launch each, three down blocks per forward
+    if launches != {"down_block": 3 * forwards[0], "focus_stack": n_wells} or forwards[0] != n_wells:
+        raise AssertionError(f"{launches} kernel launches for {forwards[0]} UNet forwards of {n_wells} wells")
+    emit("plate_fs", wells=n_wells, size=list(plate.shape[1:]), z_counts=z_counts, wells_per_sec=wps,
+         warm_s=warm_s, unet_forwards=forwards[0], launches=launches, stage_totals_s=timer.totals,
+         results=res)
     return launches
 
 
@@ -252,13 +487,20 @@ def main(argv=None) -> int:
         raise AssertionError(f"unexpected segmentor {(seg.dtype, seg.tta, seg.patch_size)}")
     phase_unet(seg, synthetic_plate(1, rng)[0], device)
     launches = phase_plate(seg, args.wells, rng, device)
+    focus_cases = phase_focus_check(rng, device)
+    focus_timings, empty_launch_ms = phase_focus_time(rng, device)
+    fs_plate, sharp, rings = focus_plate(args.wells, rng)
+    zproj_launches = phase_zproj(fs_plate, sharp, rings, device)
+    fs_launches = phase_plate_fs(seg, fs_plate, device)
 
+    one_stack = focus_timings[0]  # (1, 8, 1024, 1024): what both paths launch
     kernels = [{
         "name": "down_block",
         "route": "cuda",
         "source": "tmat_torch/csrc/down_block.cu",
         "replaces": "tmat_tpu/ops/pallas_unet.py:245",
-        "launches": launches,
+        "launches": launches + fs_launches["down_block"],
+        "launches_by_path": {"plate": launches, "plate_fs": fs_launches["down_block"]},
         "max_abs_err": max(e["max_abs_err"] for e in errors),
         # one UNet forward of 200 patches: the three production blocks
         "ms": sum(t["ms"] for t in timings),
@@ -266,6 +508,23 @@ def main(argv=None) -> int:
         "bound_ms": sum(t["bound_ms"] for t in timings),
         "bound_by": ("operations" if sum(t["ops_ms"] for t in timings) >= sum(t["bytes_ms"] for t in timings)
                      else "bytes"),
+        "library_ms": None,
+    }, {
+        "name": "focus_stack",
+        "route": "cuda",
+        "source": "tmat_torch/csrc/focus_stack.cu",
+        "replaces": "tmat_tpu/ops/pallas_zproj.py:52",
+        "launches": zproj_launches + fs_launches["focus_stack"],
+        "launches_by_path": {"zproj": zproj_launches, "plate_fs": fs_launches["focus_stack"]},
+        "max_abs_err": max(c["max_abs_err"] for c in focus_cases),
+        "mismatched_pixels": sum(c["mismatched_pixels"] for c in focus_cases),
+        # one uint8 (8, 1024, 1024) stack, as the tools and a plate chunk launch it
+        "ms": one_stack["ms"],
+        "plain_ms": one_stack["plain_ms"],
+        "conv_ms": one_stack["conv_ms"],
+        "empty_launch_ms": empty_launch_ms,
+        "bound_ms": one_stack["bound_ms"],
+        "bound_by": one_stack["bound_by"],
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

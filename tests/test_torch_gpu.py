@@ -1,7 +1,7 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 These tests need a CUDA device (``gpu`` marker) and skip without one. The
-kernel has no CPU or interpret mode; the CPU tests hold the plain version
+kernels have no CPU or interpret mode; the CPU tests hold the plain versions
 against the JAX package instead. The file imports no JAX, so on the card
 it runs without the suite's JAX conftest:
 
@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from tmat_torch.models.unet import UNetXception
-from tmat_torch.ops import down_block as db
+from tmat_torch.ops import down_block as db, focus_stack as fs
+from tmat_torch.ops import zproj
 
 # (batch, H, C, F): the test suite's block shapes, odd channel counts, and
 # the three production blocks (patch 320, filters 64-512)
@@ -130,3 +131,95 @@ def test_unet_forward_goes_through_the_kernel(cuda):
     ref = net(batch, plain_down=True)
     assert torch.isfinite(out).all() and out.shape == (4, 64, 64, 1)
     assert (out - ref).abs().max().item() < 0.05
+
+
+# (dtype, (B, Z, H, W), z_counts or None, largest value): the production
+# shape, a ragged batch, 12-bit and full-range uint16, and float32 shapes
+# with partial tiles and images smaller than the 4-pixel support
+FOCUS_CASES = [
+    ("uint8", (1, 8, 1024, 1024), None, 255), ("uint8", (4, 8, 512, 512), (8, 5, 1, 3), 255),
+    ("uint8", (2, 3, 33, 257), (3, 2), 255), ("uint8", (1, 3, 1, 1), None, 255),
+    ("uint16", (1, 12, 1024, 1024), None, 4095), ("uint16", (1, 4, 40, 40), None, 65535),
+    ("float32", (1, 5, 100, 150), None, 255), ("float32", (1, 3, 64, 64), None, 255),
+    ("float32", (1, 8, 33, 257), None, 255), ("float32", (1, 3, 5, 5), None, 1),
+    ("float32", (1, 3, 2, 3), None, 1), ("float32", (3, 4, 1, 7), (4, 1, 2), 1),
+]
+
+
+def focus_input(dtype, shape, top, seed=0):
+    x = np.random.RandomState(seed).rand(*shape) * top
+    return torch.from_numpy(x.astype(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FOCUS_CASES, ids=lambda c: f"{c[0]}-{'x'.join(map(str, c[1]))}")
+def test_focus_kernel_matches_plain(cuda, case):
+    """uint8: equal, ties included. uint16 and float32: at most 1e-4 of the
+    pixels differ, each a near-tie (the kernel is compiled without FMA
+    contraction and sums in the plain version's order, so none is expected)."""
+    dtype, shape, z_counts, top = case
+    stacks = focus_input(dtype, shape, top).to(cuda)
+    before = fs.launches
+    out = fs.focus_stack(stacks, z_counts)
+    torch.cuda.synchronize()
+    assert fs.launches == before + 1
+    assert out.dtype == stacks.dtype and tuple(out.shape) == (shape[0], *shape[2:])
+    n_diff, far, _ = fs.compare_with_plain(out, stacks, z_counts)
+    assert far == 0
+    assert n_diff == 0 if dtype == "uint8" else n_diff <= 1e-4 * out.numel()
+
+
+@pytest.mark.gpu
+def test_focus_kernel_breaks_ties_by_the_first_slice(cuda):
+    stacks = focus_input("uint8", (2, 6, 70, 90), 254, seed=1)
+    stacks[:, -1] = stacks[:, 0] + 1  # the same scores on other values
+    out = fs.focus_stack(stacks.to(cuda))
+    assert torch.equal(out.cpu(), fs.focus_stack_plain(stacks))
+    scores = fs.focus_scores(stacks)
+    tie = scores[:, 0] == scores.amax(dim=1)  # then the last slice has that score too
+    assert tie.float().mean() > 0.1 and torch.equal(scores[:, 0], scores[:, -1])
+    assert torch.equal(out.cpu()[tie], stacks[:, 0][tie])
+
+
+@pytest.mark.gpu
+def test_focus_wrapper_refuses(cuda):
+    stacks = focus_input("uint8", (2, 4, 32, 48), 255).to(cuda)
+    with pytest.raises(ValueError, match="not contiguous"):
+        fs.focus_stack(stacks[:, :, :, ::2])
+    with pytest.raises(ValueError, match="not contiguous"):
+        fs.focus_stack(stacks.permute(0, 1, 3, 2))
+    for bad in ([0, 4], [1, 5], [4], [-1, 2]):
+        with pytest.raises(ValueError, match="z_counts"):
+            fs.focus_stack(stacks, bad)
+    with pytest.raises(TypeError, match="uint8, uint16 or float32"):
+        fs.focus_stack(stacks.to(torch.float16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["uint8", "uint16", "float32"])
+def test_focus_kernel_takes_unaligned_tensors(cuda, dtype):
+    """A contiguous view that starts one element into its buffer."""
+    stacks = focus_input(dtype, (2, 3, 37, 61), 255).to(cuda)
+    buf = torch.empty(stacks.numel() + 1, dtype=stacks.dtype, device=cuda)
+    view = buf[1:].view(stacks.shape)
+    view.copy_(stacks)
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    assert torch.equal(fs.focus_stack(view).cpu(), fs.focus_stack(stacks).cpu())
+
+
+@pytest.mark.gpu
+def test_projections_go_through_the_focus_kernel(cuda):
+    """``proj_focus_stacking`` (any axis), ``proj_masked`` and
+    ``proj_masked_batch`` launch the kernel once each on a CUDA tensor."""
+    stack = focus_input("uint8", (6, 40, 52), 255)
+    ref = fs.focus_stack_plain(stack[None])[0]
+    before = fs.launches
+    assert torch.equal(zproj.proj_focus_stacking(stack.to(cuda)).cpu(), ref)
+    moved = stack.permute(1, 2, 0).contiguous().to(cuda)
+    assert torch.equal(zproj.proj_focus_stacking(moved, axis=2).cpu(), ref)
+    assert torch.equal(zproj.proj_masked(stack.to(cuda), 4, "fs").cpu(),
+                       fs.focus_stack_plain(stack[None], [4])[0].float())
+    batch = torch.stack([stack, stack.flip(0)]).to(cuda)
+    out = zproj.proj_masked_batch(batch, [6, 2], "fs")
+    assert torch.equal(out.cpu(), fs.focus_stack_plain(batch.cpu(), [6, 2]).float())
+    assert fs.launches == before + 4

@@ -33,7 +33,9 @@ def test_modules_import_without_forbidden_packages():
                          cwd=PKG.parent, timeout=300)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
-    assert "tmat_torch.tools.plate_pipeline" in MODULES and "tmat_torch.ops.down_block" in MODULES
+    assert {"tmat_torch.tools.plate_pipeline", "tmat_torch.ops.down_block", "tmat_torch.ops.focus_stack",
+            "tmat_torch.tools.compute_zproj", "tmat_torch.tools.compute_cell_area",
+            "tmat_torch.ops.wellmask", "tmat_torch.core.nd2"} <= set(MODULES)
 
 
 def test_no_import_of_the_jax_package():
@@ -57,11 +59,12 @@ def no_cuda():
         pytest.skip("checks the refusal on a machine without a CUDA device")
 
 
-@pytest.mark.parametrize("entry", ["resolve_device", "segmentor", "run_plate", "main"])
+@pytest.mark.parametrize("entry", ["resolve_device", "segmentor", "run_plate", "main", "zproj_main",
+                                   "zproj_project", "cell_area_main", "cell_area_analyze"])
 def test_entry_points_refuse_without_cuda(no_cuda, entry, tmp_path):
     from tmat_torch.device import resolve_device
     from tmat_torch.models.unet import UNetXceptionPatchSegmentor
-    from tmat_torch.tools import plate_pipeline
+    from tmat_torch.tools import compute_cell_area, compute_zproj, plate_pipeline
 
     calls = {
         "resolve_device": lambda: resolve_device(None),
@@ -70,6 +73,10 @@ def test_entry_points_refuse_without_cuda(no_cuda, entry, tmp_path):
             np.zeros((1, 1, 8, 8), np.uint8), ["W0"], object(), {"image_width_microns": 1.0}),
         "main": lambda: plate_pipeline.main(
             argv=[str(tmp_path), str(tmp_path / "out"), "--image-width-microns", "800"]),
+        "zproj_main": lambda: compute_zproj.main(argv=[str(tmp_path), str(tmp_path / "out"), "-m", "fs"]),
+        "zproj_project": lambda: compute_zproj.project(np.zeros((2, 8, 8), np.uint8), "fs"),
+        "cell_area_main": lambda: compute_cell_area.main(argv=[str(tmp_path), str(tmp_path / "out")]),
+        "cell_area_analyze": lambda: compute_cell_area.analyze_images([np.zeros((8, 8), np.uint8)], 0.0),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

@@ -46,13 +46,27 @@ def test_rescale_intensity(case):
     np.testing.assert_allclose(batch[0], ref, atol=1e-7, rtol=0)
 
 
-@pytest.mark.parametrize("method", ["max", "min", "avg", "med"])
+@pytest.mark.parametrize("method", ["max", "min", "avg", "med", "fs"])
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
 def test_zproj(method, dtype):
-    """Host and masked device projections, ragged Z: exact."""
+    """Host and masked device projections, ragged Z: exact. The whole-stack
+    projections of ``PROJ_METHODS`` too. ``fs`` has no host projection."""
     rng = np.random.RandomState(1)
     stack = rng.randint(0, 250, (5, 19, 23)).astype(dtype)
+    whole = zproj.PROJ_METHODS[method](torch.from_numpy(stack))
+    ref_whole = np.asarray(jzproj.PROJ_METHODS[method](jnp.asarray(stack)))
+    assert whole.numpy().dtype == ref_whole.dtype
+    np.testing.assert_array_equal(whole.numpy(), ref_whole)
     for z in (1, 2, 3, 5):
+        if method == "fs":
+            padded = stack.copy()
+            padded[z:] = 0
+            ref = np.asarray(jzproj.proj_masked(jnp.asarray(padded), z, method))
+            out = zproj.proj_masked(torch.from_numpy(padded), z, method).numpy()
+            np.testing.assert_array_equal(out, ref)
+            with pytest.raises(ValueError, match="fs"):
+                zproj.proj_host(stack[:z], method)
+            continue
         ref_host = np.asarray(jzproj.proj_host(stack[:z], method))
         out_host = zproj.proj_host(stack[:z], method)
         assert out_host.dtype == ref_host.dtype

@@ -63,16 +63,19 @@ def _build(name: str, src: Path, compile_cmd: Callable[[Path], List[str]]) -> Pa
         return out
 
 
-def cuda_library(name: str, defines: Sequence[str] = (), variant: str = "") -> Path:
+def cuda_library(name: str, defines: Sequence[str] = (), variant: str = "",
+                 flags: Sequence[str] = ()) -> Path:
     """Compile ``csrc/<name>.cu`` for sm_90a; returns the library path.
     ``defines`` are preprocessor macros; a build with them is kept apart as
-    ``lib<name>_<variant>.so``."""
+    ``lib<name>_<variant>.so``. ``flags`` are further nvcc flags of this
+    library alone (``-fmad=false`` where a kernel must round as its plain
+    version does)."""
     src = PKG_DIR / "csrc" / f"{name}.cu"
     return _build(
         f"{name}_{variant}" if variant else name,
         src,
         lambda o: [nvcc_path(), *CUDA_ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-                   "-Xcompiler", "-fPIC", "-Xptxas", "-v", *(f"-D{d}" for d in defines),
+                   "-Xcompiler", "-fPIC", "-Xptxas", "-v", *flags, *(f"-D{d}" for d in defines),
                    "-o", str(o), str(src)],
     )
 

@@ -3,8 +3,10 @@
 A copy of what the port needs from ``tmat_tpu/core/defs.py``: the user
 base dir (``TMAT_TPU_BASE_DIR``, else ``package.cfg``, else
 ``~/tmat_tpu``; shared with the JAX package so both read the same user
-models) and ``model_training_path``, which prefers the user copy of a file
-over the one shipped in the repo.
+models), and ``model_training_path`` and ``default_config_path``, which
+prefer the user copy of a file over the one shipped in the repo
+(``model_training/`` and ``config/``, read where the JAX package reads
+them).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ PKG_NAME = "tmat_tpu"  # the user base dir and its package.cfg section
 REPO_DIR = Path(__file__).resolve().parent.parent.parent
 PKG_CFG_PATH = REPO_DIR / "tmat_tpu" / "package.cfg"
 PKG_MODEL_DIR = REPO_DIR / "model_training"
+PKG_CONFIG_DIR = REPO_DIR / "config"
 
 
 def _read_user_base_dir() -> Path:
@@ -42,6 +45,15 @@ def _read_user_base_dir() -> Path:
 
 BASE_DIR = _read_user_base_dir()
 MODEL_TRAINING_DIR = BASE_DIR / "model_training"
+SCRIPT_CONFIG_DIR = BASE_DIR / "config"
+
+
+def default_config_path(name: str) -> Path:
+    """Path of a default tool config, preferring the user copy."""
+    user = SCRIPT_CONFIG_DIR / name
+    if user.is_file():
+        return user
+    return PKG_CONFIG_DIR / name
 
 
 def model_training_path(relpath: str) -> Path:

@@ -1,14 +1,17 @@
 """Image I/O: TIFF/PNG loading with TCZYX dimension handling and pixel sizes.
 
-A copy of the plate pipeline's part of ``tmat_tpu/core/io.py``
-(load_image, get_image_dims, probe_image_header). TIFF and PNG are read
-with PIL, imported inside the loaders only. ND2 input is not ported yet
-and raises. Returned layout: ZYX (or YX when Z==1) plus
+A copy of the tools' part of ``tmat_tpu/core/io.py`` (load_image,
+get_image_dims, probe_image_header, probe_image_dims, save_image,
+get_unique_output_filepath). TIFF and PNG are read and written with PIL,
+imported inside the loaders and savers only; Nikon ND2 goes through the
+chunk parser ``core/nd2.py`` (an installed ``nd2`` package is preferred
+when present). Returned layout: ZYX (or YX when Z==1) plus
 PhysicalPixelSizes.
 """
 
 from __future__ import annotations
 
+import os.path as osp
 import sys
 from pathlib import Path
 from typing import List, NamedTuple, Optional, Tuple, Union
@@ -126,12 +129,36 @@ def _dims_from_pages(total_pages: int, samples: int, meta: dict) -> Tuple[int, i
     return n_t, n_c, n_z
 
 
-def _load_nd2(file_path: str):
-    """ND2 input is not ported yet (ROADMAP.md, Queue 1 item 11)."""
-    raise NotImplementedError(
-        f"{file_path}: ND2 input is not yet ported to tmat_torch "
-        "(ROADMAP.md, Queue 1 item 11); convert the stack to TIFF"
-    )
+def _load_nd2(file_path: str) -> Tuple[np.ndarray, PhysicalPixelSizes, ImageDims]:
+    """Load a Nikon .nd2 Z stack. Prefers an installed ``nd2`` package;
+    otherwise uses the pure-Python chunk parser (core/nd2.py). The sequence
+    axis is read as Z (the tools' .nd2 inputs are single-position stacks)."""
+    try:
+        import nd2 as _nd2_ext  # optional external backend
+
+        with _nd2_ext.ND2File(file_path) as f:
+            arr = np.asarray(f.asarray())
+            vs = f.voxel_size()  # (x, y, z) in microns
+            sizes = PhysicalPixelSizes(Z=vs.z, Y=vs.y, X=vs.x)
+            # normalise to (Z, C, Y, X)
+            if arr.ndim == 2:
+                arr = arr[None, None]
+            elif arr.ndim == 3:
+                arr = arr[:, None]
+    except ImportError:
+        from tmat_torch.core.nd2 import ND2ParseError, read_nd2
+
+        try:
+            arr, px = read_nd2(file_path)  # (Z, C, Y, X)
+        except (ND2ParseError, OSError) as e:
+            print(f"{SFM.failure} Could not parse ND2 file {file_path}: {e}\n", flush=True)
+            sys.exit(1)
+        sizes = PhysicalPixelSizes(Z=px["Z"], Y=px["Y"], X=px["X"])
+
+    n_z, n_c, height, width = arr.shape
+    tczyx = arr.transpose(1, 0, 2, 3)[None]  # (1, C, Z, Y, X)
+    dims = ImageDims(T=1, C=n_c, Z=n_z, Y=height, X=width)
+    return tczyx, sizes, dims
 
 
 def _load_single_file(file_path: str) -> Tuple[np.ndarray, PhysicalPixelSizes, ImageDims]:
@@ -257,3 +284,50 @@ def probe_image_header(file_path: str) -> Optional[Tuple[ImageDims, str]]:
 
     n_t, n_c, n_z = _dims_from_pages(n_pages * samples, samples, meta)
     return ImageDims(T=n_t, C=n_c, Z=n_z, Y=height, X=width), mode
+
+
+def probe_image_dims(file_path: str) -> Optional[ImageDims]:
+    """Header-only TCZYX dims (see probe_image_header); None when dims
+    need a full decode: callers fall back to get_image_dims."""
+    probed = probe_image_header(file_path)
+    return probed[0] if probed else None
+
+
+def save_image(file_path: Union[str, Path], img: np.ndarray) -> None:
+    """Save a 2-D image, preserving dtype semantics like cv2.imwrite.
+
+    uint8/uint16 are written natively; bool is scaled to uint8; floats are
+    written as 32-bit float TIFF (or clipped uint8 for PNG, where float has
+    no representation).
+    """
+    from PIL import Image
+
+    file_path = str(file_path)
+    ext = Path(file_path).suffix.lower()
+    img = np.asarray(img)
+    if img.dtype == bool:
+        img = img.astype(np.uint8) * 255
+    if np.issubdtype(img.dtype, np.floating):
+        if ext in (".tif", ".tiff"):
+            Image.fromarray(img.astype(np.float32), mode="F").save(file_path)
+            return
+        img = np.clip(np.round(img), 0, 255).astype(np.uint8)
+    if img.dtype == np.uint16:
+        Image.fromarray(img, mode="I;16").save(file_path)
+        return
+    if img.dtype not in (np.uint8,):
+        img = np.clip(img, 0, 255).astype(np.uint8)
+    Image.fromarray(img).save(file_path)
+
+
+def get_unique_output_filepath(file: Union[str, Path]) -> Union[str, Path]:
+    """Suffix ``-N`` until the path doesn't collide."""
+    is_pathlib = isinstance(file, Path)
+    file = Path(file)
+    dirname = Path(osp.dirname(file))
+    name, ext = osp.splitext(osp.basename(file))
+    file_num = 1
+    while file.exists():
+        file_num += 1
+        file = dirname / f"{name}-{file_num}{ext}"
+    return file if is_pathlib else str(file)

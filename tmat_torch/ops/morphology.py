@@ -1,9 +1,56 @@
-"""Zhang-Suen thinning (``tmat_tpu/ops/morphology.py::skeletonize``)."""
+"""Binary morphology (``tmat_tpu/ops/morphology.py``): footprint erosion,
+dilation, closing and opening over the trailing (H, W) axes, and Zhang-Suen
+thinning. Outside the image erosion sees True and dilation False, as
+skimage does."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def disk(radius: int) -> np.ndarray:
+    """skimage.morphology.disk: x^2 + y^2 <= r^2."""
+    y, x = np.mgrid[-radius : radius + 1, -radius : radius + 1]
+    return (x**2 + y**2 <= radius**2).astype(np.float32)
+
+
+def square(width: int) -> np.ndarray:
+    """skimage.morphology.square."""
+    return np.ones((width, width), np.float32)
+
+
+def _conv_binary(x: torch.Tensor, footprint: np.ndarray, pad_value: float) -> torch.Tensor:
+    """Count of footprint pixels set under each pixel (exact in float32:
+    the terms are 0 or 1)."""
+    fp = torch.as_tensor(np.asarray(footprint, np.float32), device=x.device)
+    kh, kw = fp.shape
+    h, w = x.shape[-2:]
+    img = x.reshape(-1, 1, h, w).float()
+    img = F.pad(img, ((kw - 1) // 2, kw - 1 - (kw - 1) // 2, (kh - 1) // 2, kh - 1 - (kh - 1) // 2),
+                value=pad_value)
+    return F.conv2d(img, fp.reshape(1, 1, kh, kw)).reshape(*x.shape[:-2], h, w)
+
+
+def binary_erosion(x: torch.Tensor, footprint: np.ndarray) -> torch.Tensor:
+    """skimage binary_erosion (out-of-image treated as True)."""
+    return _conv_binary(x > 0, footprint, 1.0) >= float(footprint.sum()) - 0.5
+
+
+def binary_dilation(x: torch.Tensor, footprint: np.ndarray) -> torch.Tensor:
+    """skimage binary_dilation (footprint mirrored; all ours are symmetric)."""
+    return _conv_binary(x > 0, footprint, 0.0) > 0.5
+
+
+def binary_closing(x: torch.Tensor, footprint: np.ndarray) -> torch.Tensor:
+    """Dilation then erosion."""
+    return binary_erosion(binary_dilation(x, footprint), footprint)
+
+
+def binary_opening(x: torch.Tensor, footprint: np.ndarray) -> torch.Tensor:
+    """Erosion then dilation."""
+    return binary_dilation(binary_erosion(x, footprint), footprint)
 
 
 def _zhang_suen_subiter(x: torch.Tensor, first: bool) -> torch.Tensor:

@@ -94,3 +94,9 @@ def resize(img: torch.Tensor, shape: Tuple[int, int], method: str = "linear") ->
 def target_shape_for_ratio(shape: Tuple[int, int], ratio: float) -> Tuple[int, int]:
     """round(shape * ratio), the reference's target-size rule."""
     return tuple(int(x) for x in np.round(np.multiply(shape[:2], ratio)).astype(int))
+
+
+def downsample_max_dim_shape(shape: Tuple[int, int], max_dim: int) -> Tuple[int, int]:
+    """Target shape so that max(shape) == max_dim."""
+    ratio = max_dim / max(shape[:2])
+    return tuple(int(x) for x in np.round(np.multiply(shape[:2], ratio)).astype(int))

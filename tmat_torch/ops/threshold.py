@@ -1,4 +1,4 @@
-"""Foreground threshold by a 2-component GMM, batched over images.
+"""Foreground thresholds: a 2-component GMM, batched over images, and Otsu.
 
 Counterpart of ``tmat_tpu/ops/threshold.py`` (``gmm2_fit``,
 ``exec_threshold``): a k-means init by 20 Lloyd steps, then weighted EM
@@ -10,6 +10,9 @@ The JAX package vmaps a ``while_loop``; here every image of the batch
 steps together and a per-image "still running" mask freezes the finished
 ones, which leaves each image's result what it would be alone. The loop
 syncs with the host once per EM iteration for the whole batch.
+``exec_threshold`` is batched already, so ``exec_threshold_batch`` is its
+other name. ``otsu_threshold`` is skimage's ``threshold_otsu`` over the
+image's value range.
 """
 
 from __future__ import annotations
@@ -108,3 +111,26 @@ def exec_threshold(
     weights = None if mask is None else (mask > 0).reshape(flat.shape)
     thresh = gmm_foreground_threshold(flat, sd_coef, weights)
     return torch.where(masked <= thresh[:, None, None], torch.zeros_like(masked), masked)
+
+
+exec_threshold_batch = exec_threshold
+
+
+def otsu_threshold(img: torch.Tensor, nbins: int = 256) -> torch.Tensor:
+    """Otsu's threshold of one image: the centre of the bin that maximises
+    the inter-class variance; foreground is ``img >= thresh`` at the call
+    site."""
+    x = img.float().ravel()
+    lo, hi = x.min(), x.max()
+    span = torch.clamp(hi - lo, min=1e-12)
+    idx = torch.clamp(((x - lo) / span * nbins).to(torch.int32), 0, nbins - 1)
+    hist = torch.bincount(idx, minlength=nbins).float()
+    centers = lo + (torch.arange(nbins, dtype=torch.float32, device=x.device) + 0.5) * span / nbins
+    w0 = torch.cumsum(hist, 0)
+    w1 = w0[-1] - w0
+    sum0 = torch.cumsum(hist * centers, 0)
+    mu0 = sum0 / torch.clamp(w0, min=1e-12)
+    mu1 = (sum0[-1] - sum0) / torch.clamp(w1, min=1e-12)
+    between = w0 * w1 * (mu0 - mu1) ** 2
+    between = torch.where((w0 > 0) & (w1 > 0), between, -1.0)
+    return centers[torch.argmax(between)]

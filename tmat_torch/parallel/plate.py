@@ -5,9 +5,11 @@ Counterpart of ``tmat_tpu/parallel/plate.py::plate_stage1`` and
 wells is a leading batch axis on one device, and PyTorch runs the ops
 eagerly on the current stream.
 
-Stage 1: Z projection (or the host's projection), Lanczos resize to the
-segmentor's scale, per-well rescale, the GMM area fraction, the tiled
-UNet (one forward of every patch of a well), then the disk(2) median,
+Stage 1: Z projection of the whole chunk (``plate_zproj_masked``; focus
+stacking is one kernel launch per chunk) or the host's projection,
+Lanczos resize to the segmentor's scale, per-well rescale, the GMM area
+fraction (of the well's pixels when well masks are given), the tiled UNet
+(one forward of every patch of a well), then the disk(2) median,
 Zhang-Suen skeleton and bit-packing of the thresholded prediction. The
 packed rasters and the areas go to the host; ``preds`` stays on the
 device for stage 2.
@@ -28,7 +30,7 @@ from tmat_torch.ops.rescale import rescale_intensity
 from tmat_torch.ops.resize import resize
 from tmat_torch.ops.threshold import exec_threshold
 from tmat_torch.ops.tiled import tiled_core
-from tmat_torch.ops.zproj import proj_masked
+from tmat_torch.ops.zproj import proj_masked_batch
 from tmat_torch.topo.transforms import median_filter_disk2_batch
 
 _BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
@@ -52,6 +54,15 @@ def unpackbits(packed: torch.Tensor, w: int) -> torch.Tensor:
     return bits.reshape(*packed.shape[:-1], -1)[..., :w].to(torch.bool)
 
 
+def plate_zproj_masked(stacks: torch.Tensor, z_counts: Optional[Sequence[int]] = None,
+                       method: str = "max") -> torch.Tensor:
+    """float32 projections of a ragged (B, Z, H, W) chunk: ``z_counts``
+    mask each well's Z padding out of the reduction (all of Z when None)."""
+    if z_counts is None:
+        z_counts = [stacks.shape[1]] * stacks.shape[0]
+    return proj_masked_batch(stacks, z_counts, method)
+
+
 def plate_stage1(
     stacks: torch.Tensor,
     pred_func: Callable,
@@ -59,6 +70,7 @@ def plate_stage1(
     subdivisions: int,
     target: Tuple[int, int],
     sd_coef: float,
+    wm_small: Optional[torch.Tensor] = None,
     proj_method: str = "max",
     z_counts: Optional[Sequence[int]] = None,
     pre_projected: bool = False,
@@ -68,20 +80,24 @@ def plate_stage1(
 
     ``stacks`` is (B, Z, H, W), or (B, H, W) projections when
     ``pre_projected``; ``z_counts`` masks Z padding on ragged plates.
-    Returns (area (B,), preds (B, *target) f32, packed filtered masks,
-    packed skeletons), all on the stacks' device.
+    ``wm_small`` are (B, *target) well masks: the area is then the
+    thresholded fraction of the well's pixels and the segmentor sees the
+    well only. Returns (area (B,), preds (B, *target) f32, packed filtered
+    masks, packed skeletons), all on the stacks' device.
     """
-    if pre_projected:
-        proj = stacks.float()
-    else:
-        if z_counts is None:
-            z_counts = [stacks.shape[1]] * stacks.shape[0]
-        proj = torch.stack([proj_masked(s, int(zc), proj_method)
-                            for s, zc in zip(stacks, z_counts)])
+    proj = stacks.float() if pre_projected else plate_zproj_masked(stacks, z_counts, proj_method)
     small = rescale_intensity(resize(proj, target, "lanczos"), dims=(-2, -1))
     scaled = rescale_intensity(proj, dims=(-2, -1))
-    thresh = exec_threshold(scaled, None, float(sd_coef)) > 0
-    area = thresh.float().mean(dim=(-2, -1))
+    if wm_small is None:
+        thresh = exec_threshold(scaled, None, float(sd_coef)) > 0
+        area = thresh.float().mean(dim=(-2, -1))
+    else:
+        wm_small = wm_small.float()
+        wm_full = (resize(wm_small, proj.shape[-2:], "nearest") > 0).float()
+        scaled = torch.where(wm_full > 0, scaled, 0.0)
+        thresh = exec_threshold(scaled, wm_full, float(sd_coef)) > 0
+        area = thresh.float().sum(dim=(-2, -1)) / torch.clamp(wm_full.sum(dim=(-2, -1)), min=1.0)
+        small = small * wm_small
     preds = torch.stack([
         tiled_core(img, pred_func, window_size, subdivisions, 1, tta) for img in small
     ])

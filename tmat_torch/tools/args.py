@@ -1,19 +1,22 @@
-"""Input/output directory checks of the plate CLI.
+"""Argument parsers and input/output directory checks of the port's tools.
 
-A copy of the three helpers ``tmat_torch.tools.plate_pipeline.main``
-calls from ``tmat_tpu/tools/args.py``: files-XOR-dirs input validation,
-Z-stack vs 2-D input resolution, and create-or-warn output verification.
-The multi-process discovery check is not ported (single process only).
+A copy of what the plate, zproj and cell-area tools use from
+``tmat_tpu/tools/args.py``: the same flags per tool, files-XOR-dirs input
+validation, Z-stack vs 2-D input resolution, create-or-warn output
+verification and the config-file echo. The multi-process discovery check
+is not ported (single process only).
 """
 
 from __future__ import annotations
 
+import argparse
+import json
 import os
 import os.path as osp
 import sys
 from glob import glob
 from pathlib import Path
-from typing import Dict, List, Union
+from typing import Any, Dict, List, Sequence, Union
 
 from tmat_torch.core import io as tio, zdiscovery as zd
 from tmat_torch.core.log import SFM, section_footer, section_header
@@ -94,8 +97,22 @@ def resolve_image_paths(input_path: str) -> Dict[str, Union[str, List[str]]]:
     return img_paths
 
 
-def verify_output_dir(output_path: str) -> None:
-    """Create the output dir, or warn that it is not empty."""
+def cell_area_verify_input_dir(input_path: str) -> Dict[str, Union[str, List[str]]]:
+    section_header("Verifying Input Directory")
+    check_input_dir_structure(input_path)
+    img_paths = resolve_image_paths(input_path)
+    if len(img_paths) == 0:
+        print(f"{SFM.failure}No images found in {input_path}", flush=True)
+        _input_dir_help()
+        sys.exit(1)
+    print(f"Found {len(img_paths)} images in:{os.linesep}\t{input_path}", flush=True)
+    print(SFM.success, flush=True)
+    section_footer()
+    return img_paths
+
+
+def verify_output_dir(output_path: str, subdirs: Sequence[str] = ()) -> None:
+    """Create the output dir (and ``subdirs``), or warn that it is not empty."""
     section_header("Verifying Output Directory")
     if not osp.isdir(output_path):
         if osp.isfile(output_path):
@@ -111,5 +128,67 @@ def verify_output_dir(output_path: str) -> None:
             "not be desired.",
             flush=True,
         )
+    for sub in subdirs:
+        os.makedirs(osp.join(output_path, sub), exist_ok=True)
     print(SFM.success, flush=True)
     section_footer()
+
+
+def _add_common_io_args(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("in_root", type=str, help="Root directory of input images.")
+    parser.add_argument("out_root", type=str, help="Root directory for output.")
+    parser.add_argument(
+        "--channel", type=int, default=None,
+        help="Index of color channel to read (required for multichannel images).",
+    )
+    parser.add_argument(
+        "--time", type=int, default=None,
+        help="Index of time to read (required for time-series images).",
+    )
+
+
+def parse_zproj_args(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(description="Compute Z projections from image stacks.")
+    _add_common_io_args(parser)
+    parser.add_argument(
+        "-m", "--method", type=str, default="max", choices=["min", "max", "med", "avg", "fs"],
+        help="Z projection method.",
+    )
+    parser.add_argument(
+        "-a", "--area", action="store_true", help="Compute cell area after Z projection.",
+    )
+    return parser.parse_args(argv)
+
+
+def parse_cell_area_args(arg_defaults: Dict[str, Any], argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(
+        description="Compute cell coverage area of Z projections or 2-D images."
+    )
+    _add_common_io_args(parser)
+    parser.add_argument(
+        "-w", "--detect-well", action="store_true",
+        help="Auto detect the well boundary and exclude regions outside it.",
+    )
+    parser.add_argument(
+        "--sd-coef", type=float, default=None,
+        help="Threshold = foreground mean + sd_coef * foreground SD.",
+    )
+    parser.add_argument(
+        "-c", "--config", type=str, default=arg_defaults["default_config_path"],
+        help="Path to the cell-area configuration file.",
+    )
+    return parser.parse_args(argv)
+
+
+def verify_config_file(config_path: str) -> Dict[str, Any]:
+    """Load and echo a tool config."""
+    section_header("Verifying Config File")
+    if not osp.isfile(config_path):
+        raise FileNotFoundError(f"Config file not found: {config_path}")
+    with open(config_path, "r", encoding="utf8") as fp:
+        config = json.load(fp)
+    for key, val in config.items():
+        print(f"{key}: {val}", flush=True)
+    print(SFM.success, flush=True)
+    section_footer()
+    return config

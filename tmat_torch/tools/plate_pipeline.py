@@ -1,16 +1,18 @@
 """Plate-scale pipeline on one CUDA device: zproj -> cell area -> branches.
 
 Counterpart of ``tmat_tpu/tools/plate_pipeline.py``. A producer thread
-projects each well's Z stack on the host as it is decoded and feeds a
-bounded queue; each chunk of wells then runs stage 1 on the device, the
-component filter on the host, stage 2 on the device and the Morse engine
-on the host, in a pool task, so one chunk's host tail overlaps the next
-chunk's device work. Device work is issued under one lock onto the
-current stream.
+projects each well's Z stack on the host as it is decoded (for ``-m fs``
+it ships the Z-padded stack with its depth, and the chunk is projected by
+the focus-stacking kernel) and feeds a bounded queue; each chunk of wells
+then runs stage 1 on the device, the component filter on the host, stage 2
+on the device and the Morse engine on the host, in a pool task, so one
+chunk's host tail overlaps the next chunk's device work. With
+``-w/--detect-well`` a well mask is fitted per well on the projection that
+stage 1 analyses: the area is then a fraction of the well, the segmentor
+sees the well only, and a shrunken mask prunes branches at the well's
+edge. Device work is issued under one lock onto the current stream.
 
-Not ported yet, and refused: ``-m fs`` and ``-w/--detect-well``
-(ROADMAP.md, Queue 1 item 11), ND2 input, and the multi-process mode
-(Queue 1 item 15).
+Not ported yet: the multi-process mode.
 
 Usage:
     python -m tmat_torch.tools.plate_pipeline IN_DIR OUT_DIR \
@@ -38,19 +40,14 @@ from tmat_torch.core.log import SFM, section_footer, section_header
 from tmat_torch.core.profiling import StageTimer
 from tmat_torch.device import DeviceLike, resolve_device
 from tmat_torch.models.unet import get_unet_patch_segmentor_from_cfg
-from tmat_torch.ops.zproj import METHODS, proj_host
-from tmat_torch.parallel.plate import plate_stage1, plate_stage2
+from tmat_torch.ops.resize import resize
+from tmat_torch.ops.wellmask import make_well_mask
+from tmat_torch.ops.zproj import PROJ_METHODS, proj_host
+from tmat_torch.parallel.plate import plate_stage1, plate_stage2, plate_zproj_masked
 from tmat_torch.topo.morse_native import morse_stats_native
 from tmat_torch.topo.transforms import filter_branch_seg_mask
 
 DOWNSAMPLE_WIDTH = 384
-
-NOT_PORTED = {
-    "fs": "focus stacking (-m fs) is not yet ported to tmat_torch "
-          "(ROADMAP.md, Queue 1 item 11, with the focus kernel of Queue 2)",
-    "detect_well": "well detection (-w/--detect-well) is not yet ported to "
-                   "tmat_torch (ROADMAP.md, Queue 1 item 11)",
-}
 
 
 def _analyze_well_graph(pred384: np.ndarray, config: dict, width_px: int, pruning_mask=None):
@@ -79,15 +76,6 @@ def _analyze_well_graph(pred384: np.ndarray, config: dict, width_px: int, prunin
     return n_branches, to_um(total_px), to_um(avg_px)
 
 
-def _check_supported(proj_method: str, detect_well: bool) -> None:
-    if proj_method == "fs":
-        raise NotImplementedError(NOT_PORTED["fs"])
-    if proj_method not in METHODS:
-        raise ValueError(f"Unknown projection method: {proj_method}")
-    if detect_well:
-        raise NotImplementedError(NOT_PORTED["detect_well"])
-
-
 def run_plate(
     stacks: np.ndarray,
     well_ids: Sequence[str],
@@ -96,6 +84,7 @@ def run_plate(
     sd_coef: float = 0.0,
     timer: Optional[StageTimer] = None,
     detect_well: bool = False,
+    seed: int = 0,
     proj_method: str = "max",
     z_counts: Optional[Sequence[int]] = None,
     device: DeviceLike = None,
@@ -103,7 +92,8 @@ def run_plate(
     """Process an in-memory (B, Z, H, W) plate; returns per-well results.
 
     Wells stream from the array through ``run_plate_streaming``, each
-    trimmed to its true depth when ``z_counts`` is given.
+    trimmed to its true depth when ``z_counts`` is given. ``seed`` seeds
+    the well-mask search of ``detect_well``.
     """
     n_wells = stacks.shape[0]
     if z_counts is None:
@@ -116,7 +106,7 @@ def run_plate(
     return run_plate_streaming(
         wells(), n_wells, stacks.shape[1:], segmentor, config,
         plate_dtype=stacks.dtype, sd_coef=sd_coef, timer=timer,
-        detect_well=detect_well, proj_method=proj_method, device=device,
+        detect_well=detect_well, seed=seed, proj_method=proj_method, device=device,
     )
 
 
@@ -130,6 +120,7 @@ def run_plate_streaming(
     sd_coef: float = 0.0,
     timer: Optional[StageTimer] = None,
     detect_well: bool = False,
+    seed: int = 0,
     proj_method: str = "max",
     prefetch: int = 3,
     chunk_wells: int = 1,
@@ -145,14 +136,18 @@ def run_plate_streaming(
     dev = resolve_device(device)
     if segmentor.device != dev:
         raise ValueError(f"segmentor is on {segmentor.device}, the plate on {dev}")
-    _check_supported(proj_method, detect_well)
+    if proj_method not in PROJ_METHODS:
+        raise ValueError(f"Unknown projection method: {proj_method}")
     timer = timer or StageTimer()
-    _, h_max, w_max = (int(v) for v in plate_zhw)
+    z_max, h_max, w_max = (int(v) for v in plate_zhw)
     target = tuple(int(v) for v in np.round(np.multiply((h_max, w_max), segmentor.ds_ratio)))
     dsamp = tuple(int(v) for v in np.round(np.multiply(target, DOWNSAMPLE_WIDTH / target[-1])))
-    # every supported method projects on the host as each well is decoded,
-    # so only an (H, W) projection crosses to the device
+    # every method but fs projects on the host as each well is decoded, so
+    # only an (H, W) projection crosses to the device; fs needs the device,
+    # and ships the Z-padded stack with its depth
+    pre_project = proj_method != "fs"
     chunk_dtype = np.float32 if proj_method in ("avg", "med") else plate_dtype
+    pad_shape = (h_max, w_max) if pre_project else (z_max, h_max, w_max)
 
     chunk_q: "queue_mod.Queue" = queue_mod.Queue(maxsize=max(1, prefetch))
     stop = threading.Event()
@@ -169,20 +164,24 @@ def run_plate_streaming(
 
     def producer():
         try:
-            ids, buf = [], []
+            ids, buf, zcs = [], [], []
 
             def flush():
-                _put((list(ids), np.stack(buf)))
-                ids.clear(), buf.clear()
+                _put((list(ids), np.stack(buf), list(zcs)))
+                ids.clear(), buf.clear(), zcs.clear()
 
             for wid, stack in wells:
                 if stop.is_set():
                     return
-                arr = np.zeros((h_max, w_max), chunk_dtype)
-                proj = proj_host(stack, proj_method)
-                arr[: proj.shape[0], : proj.shape[1]] = proj
+                arr = np.zeros(pad_shape, chunk_dtype)
+                if pre_project:
+                    proj = proj_host(stack, proj_method)
+                    arr[: proj.shape[0], : proj.shape[1]] = proj
+                else:
+                    arr[: stack.shape[0], : stack.shape[1], : stack.shape[2]] = stack
                 ids.append(wid)
                 buf.append(arr)
+                zcs.append(int(stack.shape[0]))
                 if len(buf) == chunk_wells:
                     flush()
             if buf:
@@ -191,13 +190,34 @@ def run_plate_streaming(
         except BaseException as exc:  # the consumer re-raises it
             _put(exc)
 
-    def chunk_task(chunk_np: np.ndarray):
+    def fit_well_masks(proj: torch.Tensor):
+        """(B, *target) float well masks on the device and the per-well
+        pruning masks (the inverted shrunken masks at ``dsamp``) on the
+        host, fitted on the projections that stage 1 analyses."""
+        small_np = resize(proj, target, "lanczos").cpu().numpy()
+        pairs = [make_well_mask(small, seed=seed, device=dev) for small in small_np]
+        wm = torch.from_numpy(np.stack([m for m, _ in pairs]).astype(np.float32)).to(dev)
+        outside = torch.from_numpy(np.stack([~s for _, s in pairs]).astype(np.float32)).to(dev)
+        pruning = (resize(outside, dsamp, "nearest") > 0).cpu().numpy()
+        return wm, list(pruning)
+
+    def chunk_task(chunk_np: np.ndarray, zcs):
         """One chunk end to end, in a pool thread."""
+        wm, pruning_chunk = None, [None] * len(zcs)
         with device_lock, timer.stage("device_stage1"):
-            dc = torch.from_numpy(chunk_np).to(dev, non_blocking=False)
+            stage1_in = torch.from_numpy(chunk_np).to(dev, non_blocking=False)
+            stage1_pre = pre_project
+            if detect_well:
+                if not pre_project:
+                    # project once: the mask is fitted on what stage 1 analyses
+                    stage1_in = plate_zproj_masked(stage1_in, zcs, proj_method)
+                    stage1_pre = True
+                with timer.stage("well_mask"):
+                    wm, pruning_chunk = fit_well_masks(stage1_in.float())
             area, preds, f_pk, s_pk = plate_stage1(
-                dc, segmentor._pred_fn, segmentor.patch_size, 2, target, sd_coef,
-                proj_method=proj_method, pre_projected=True, tta=segmentor.tta,
+                stage1_in, segmentor._pred_fn, segmentor.patch_size, 2, target, sd_coef, wm,
+                proj_method=proj_method, z_counts=zcs, pre_projected=stage1_pre,
+                tta=segmentor.tta,
             )
             area, f_pk, s_pk = area.cpu().numpy(), f_pk.cpu().numpy(), s_pk.cpu().numpy()
         w = preds.shape[-1]
@@ -217,7 +237,8 @@ def run_plate_streaming(
                 ).cpu().numpy()
                 del preds
         with timer.stage("morse_graphs"):
-            stats = [_analyze_well_graph(p384[j], config, dsamp[1]) for j in range(p384.shape[0])]
+            stats = [_analyze_well_graph(p384[j], config, dsamp[1], pruning_chunk[j])
+                     for j in range(p384.shape[0])]
         return area, stats
 
     well_ids: list = []
@@ -243,9 +264,9 @@ def run_plate_streaming(
                         break
                     if isinstance(item, BaseException):
                         raise item
-                    ids, chunk_np = item
+                    ids, chunk_np, zcs = item
                     well_ids.extend(ids)
-                    futures.append(pool.submit(chunk_task, chunk_np))
+                    futures.append(pool.submit(chunk_task, chunk_np, zcs))
                 finished = [f.result() for f in futures]
     finally:
         stop.set()
@@ -353,16 +374,12 @@ def main(args=None, argv=None, device: DeviceLike = None):
     p.add_argument("--sd-coef", type=float, default=0.0)
     p.add_argument("-w", "--detect-well", action="store_true")
     p.add_argument("-m", "--method", choices=("min", "max", "med", "avg", "fs"), default="max",
-                   help="Z-projection method (fs is not ported yet).")
+                   help="Z-projection method.")
     p.add_argument("--tta", type=int, choices=(1, 4, 8), default=None,
                    help="Dihedral test-time-augmentation variants of the tiled "
                         "UNet (default: the model config's 'tta' key, else 8).")
     if args is None:
         args = p.parse_args(argv)
-    for flag, refused in (("fs", args.method == "fs"), ("detect_well", args.detect_well)):
-        if refused:
-            print(f"{SFM.failure} {NOT_PORTED[flag]}", flush=True)
-            sys.exit(2)
     dev = resolve_device(device)
 
     from tmat_torch.tools import args as su
@@ -392,7 +409,8 @@ def main(args=None, argv=None, device: DeviceLike = None):
 
     section_header("Processing plate")
     start = time.perf_counter()
-    common = dict(sd_coef=args.sd_coef, proj_method=args.method, device=dev)
+    common = dict(sd_coef=args.sd_coef, detect_well=args.detect_well, proj_method=args.method,
+                  device=dev)
     if plate_zhw is not None:
         results = run_plate_streaming(
             _well_loader(img_paths), len(well_ids), plate_zhw[:3], segmentor, config,
