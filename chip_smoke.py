@@ -8,7 +8,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 2. build: the two CUDA kernels and the three host libraries, from the
    sources in this checkout, all compilers started together;
 3. kernel: the fused down block against its plain PyTorch version at the
-   three production block shapes (B=8, f32 and bf16), then timed at B=200
+   three production block shapes (B=8, f32 and bf16) and at an odd-width
+   block, so that both forms of the kernel (the warpgroup form of the bf16
+   production blocks, and the general form) are held, then timed at B=200
    (CUDA events) beside its plain version and its bound on this card;
 4. unet: the shipped segmentor's forward on a 200 x 320^2 bf16 patch
    batch of a synthetic well, kernel path against plain path (mask IoU),
@@ -19,7 +21,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    uint8 (equal), uint16 and float32 (near-tie rule), ragged depths,
    partial tiles and images smaller than the kernel's support;
 7. focus_time: that kernel at uint8 (1, 8, 1024, 1024) and (8, 8, 1024,
-   1024) beside its plain version, the conv2d (cuDNN) composition, an
+   1024), at full depth (nothing uploaded) and with host ``z_counts``,
+   beside its plain version, the conv2d (cuDNN) composition, an
    empty-sized launch and its bound on this card;
 8. zproj: eight 8 x 1024^2 stacks through ``compute_zproj.project`` (all
    five methods) and the ``fs`` projections through
@@ -52,6 +55,12 @@ PEAK_BYTES = 3.35e12
 SHIPPED_CFG = "model_training/binary_segmentation/configs/unet_patch_segmentor_1.json"
 # (H, C, F) of the production down blocks: patch 320, filters 64-128-256-512
 BLOCK_SHAPES = [(160, 64, 128), (80, 128, 256), (40, 256, 512)]
+# (B, H, C, F) of a block that only the kernel's general form takes (odd widths)
+ODD_BLOCK = (3, 10, 5, 12)
+# the kernels' times before their redesign for this card (NVIDIA H100 80GB
+# HBM3, 700.00 W): the three production blocks together, and one uint8
+# (1, 8, 1024, 1024) stack with host z_counts
+EARLIER_MS = {"down_block": 29.87, "focus_stack": 0.0986}
 TOL = {torch.float32: 2e-5}  # bf16: 2**-6 of the output's largest magnitude
 # focus stacking, per pixel and slice: multiply-adds of the taps (blur 2 x 5,
 # Laplacian 2 x (3 + 5)), two operations each, and the compare
@@ -135,19 +144,24 @@ def phase_kernel(rng, device):
     from tmat_torch.ops import down_block as db
 
     errors = []
-    for h, c, f in BLOCK_SHAPES:
+    for b, h, c, f in [(8, *shape) for shape in BLOCK_SHAPES] + [ODD_BLOCK]:
         for dtype in (torch.float32, torch.bfloat16):
-            x, blk = db.random_block(rng, 8, h, c, f, dtype, device)
+            x, blk = db.random_block(rng, b, h, c, f, dtype, device)
             for first in (True, False):
                 out = db.down_block(x, blk, first)
                 ref = db.down_block_plain(x, blk, first)
                 torch.cuda.synchronize()
                 err = (out.float() - ref.float()).abs().max().item()
                 tol = TOL.get(dtype, 2.0 ** -6 * ref.float().abs().max().item())
-                errors.append({"shape": [8, h, h, c, f], "dtype": str(dtype), "first": first,
-                               "max_abs_err": err, "tol": tol})
+                errors.append({"shape": [b, h, h, c, f], "dtype": str(dtype), "first": first,
+                               "form": db.launch_form(c, f, dtype), "max_abs_err": err, "tol": tol})
                 if not (err <= tol and torch.isfinite(out.float()).all()):
                     raise AssertionError(f"down block kernel disagrees with its plain version: {errors[-1]}")
+    forms = {(e["form"], e["dtype"]) for e in errors}
+    if not {("wgmma", "torch.bfloat16"), ("wmma", "torch.bfloat16"), ("wmma", "torch.float32")} <= forms:
+        raise AssertionError(f"a form of the down-block kernel was not held against the plain version: {forms}")
+    if any(db.launch_form(c, f, torch.bfloat16) != "wgmma" for _, c, f in BLOCK_SHAPES):
+        raise AssertionError("a production block does not take the warpgroup form")
     emit("kernel_check", cases=errors)
 
     timings = []
@@ -158,7 +172,8 @@ def phase_kernel(rng, device):
         plain_ms = cuda_ms(lambda: db.down_block_plain(x, blk, first), 10)
         timings.append({"shape": [200, h, h, c, f], "dtype": "bfloat16", "ms": kernel_ms,
                         "plain_ms": plain_ms, **block_work(200, h, c, f, torch.bfloat16),
-                        "tile": db.launch_config(c, f, torch.bfloat16)})
+                        "tile": db.launch_config(c, f, torch.bfloat16),
+                        "form": db.launch_form(c, f, torch.bfloat16)})
     emit("kernel_time", blocks=timings)
     return errors, timings
 
@@ -254,13 +269,13 @@ def focus_work(z_counts, h: int, w: int, itemsize: int) -> dict:
     """What one focus-stacking call must do and move: each stack's first
     ``z_count`` slices read once and one projection written, each in its
     own type; FOCUS_FLOPS float32 operations per pixel and slice read. The
-    halo (a 40 x 40 tile read for a 32 x 32 output) is stated apart: it is
+    halo (a 40 x 128 tile read for a 32 x 120 output) is stated apart: it is
     read again, mostly from L2, and is no part of the bound."""
     slices, stacks = int(np.sum(z_counts)), len(z_counts)
     nbytes = (slices + stacks) * h * w * itemsize + 4 * stacks
     flops = slices * h * w * FOCUS_FLOPS
     ops_ms, bytes_ms = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    return {"flops": flops, "bytes": nbytes, "halo_bytes": int(slices * h * w * itemsize * (40 * 40 / 32 ** 2 - 1)),
+    return {"flops": flops, "bytes": nbytes, "halo_bytes": int(slices * h * w * itemsize * (40 * 128 / (32 * 120) - 1)),
             "ops_ms": ops_ms, "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
@@ -280,6 +295,10 @@ def phase_focus_check(rng, device):
         allowed = 0 if dtype == "uint8" else 1e-4 * out.numel()
         if far or n_diff > allowed or out.dtype != stacks.dtype:
             raise AssertionError(f"focus kernel disagrees with its plain version: {cases[-1]}")
+        # depths as an int32 tensor on the card (taken as it is) give the same projection
+        zc_dev = torch.tensor(z_counts or [shape[1]] * shape[0], dtype=torch.int32, device=device)
+        if not torch.equal(fs.focus_stack(stacks, zc_dev).cpu(), out.cpu()):
+            raise AssertionError(f"focus kernel: device z_counts change the projection: {cases[-1]}")
     emit("focus_check", cases=cases)
     return cases
 
@@ -302,7 +321,10 @@ def phase_focus_time(rng, device):
         zc = [8] * b
         timings.append({
             "shape": [b, 8, 1024, 1024], "dtype": "uint8",
-            "ms": cuda_ms(lambda: fs.focus_stack(nxt(), zc), 20),
+            # full depth, nothing uploaded: what ``project`` launches
+            "ms": cuda_ms(lambda: fs.focus_stack(nxt()), 20),
+            # host depths, checked and uploaded with every call: what a plate chunk launches
+            "host_counts_ms": cuda_ms(lambda: fs.focus_stack(nxt(), zc), 20),
             "plain_ms": cuda_ms(lambda: fs.focus_stack_plain(nxt(), zc), 3),
             "conv_ms": cuda_ms(lambda: focus_stack_conv(nxt(), zc), 3),
             **focus_work(zc, 1024, 1024, 1),
@@ -509,6 +531,9 @@ def main(argv=None) -> int:
         "bound_by": ("operations" if sum(t["ops_ms"] for t in timings) >= sum(t["bytes_ms"] for t in timings)
                      else "bytes"),
         "library_ms": None,
+        "earlier_ms": EARLIER_MS["down_block"],
+        "blocks": [{"shape": t["shape"], "ms": t["ms"], "bound_ms": t["bound_ms"], "form": t["form"],
+                    "tile": t["tile"][0]} for t in timings],
     }, {
         "name": "focus_stack",
         "route": "cuda",
@@ -520,12 +545,14 @@ def main(argv=None) -> int:
         "mismatched_pixels": sum(c["mismatched_pixels"] for c in focus_cases),
         # one uint8 (8, 1024, 1024) stack, as the tools and a plate chunk launch it
         "ms": one_stack["ms"],
+        "host_counts_ms": one_stack["host_counts_ms"],
         "plain_ms": one_stack["plain_ms"],
         "conv_ms": one_stack["conv_ms"],
         "empty_launch_ms": empty_launch_ms,
         "bound_ms": one_stack["bound_ms"],
         "bound_by": one_stack["bound_by"],
         "library_ms": None,
+        "earlier_ms": EARLIER_MS["focus_stack"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

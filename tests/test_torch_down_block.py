@@ -114,3 +114,24 @@ def test_wrapper_checks_inputs():
         db.down_block(torch.zeros(1, 16, 16, 8), bad, True)
     with pytest.raises(ValueError, match="contiguous"):
         db.down_block(torch.zeros(1, 16, 16, 16)[..., :8], blk, True)
+
+
+@pytest.mark.parametrize("first", [True, False])
+@pytest.mark.parametrize("hw", [8, 10, 20])
+def test_plain_matches_pallas_bf16_at_the_warpgroup_widths(hw, first):
+    """64 -> 128 channels in bf16 (the widths the kernel's warpgroup form
+    takes) at sizes whose pooled tiles are whole and ragged (5 x 5 and
+    10 x 10 pooled pixels against tiles of 8): the plain version the card
+    holds that form against agrees with the Pallas kernel. Same bound as
+    ``test_plain_matches_pallas_bf16``."""
+    filters = (64, 128, 256, 512)
+    jblk, tblk = _blocks(filters, 64)
+    x = np.random.RandomState(hw).randn(3, hw, hw, 64).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    ref = np.asarray(_down_block(xb, _jax_blk(jblk[0], jnp.bfloat16), first=first, interpret=True), np.float32)
+    xt = torch.tensor(np.asarray(xb.astype(jnp.float32))).to(torch.bfloat16)
+    out = db.down_block(xt, _torch_blk(tblk[0], torch.bfloat16), first)
+    assert tuple(out.shape) == (3, hw // 2, hw // 2, 128) and out.dtype == torch.bfloat16
+    err = np.abs(out.float().numpy() - ref)
+    assert err.max() <= 2.0 ** -6 * np.abs(ref).max(), (err.max(), np.abs(ref).max())
+    assert np.mean(err == 0) > 0.9, "most outputs must round to the same bf16 value"

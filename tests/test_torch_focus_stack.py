@@ -149,3 +149,53 @@ def test_wrapper_checks_its_input():
     for bad in ([3], [0, 1], [1, 4], [1, 2, 3]):
         with pytest.raises(ValueError, match="z_counts"):
             focus_stack(x, bad)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.float32])
+def test_full_depth_equals_explicit_depths(dtype):
+    """``None`` is the full depth of every stack: the same projection as
+    ``[Z] * B`` given as host values or as an int32 tensor."""
+    stacks = torch.from_numpy((np.random.RandomState(5).rand(3, 4, 21, 34) * 200).astype(dtype))
+    full = focus_stack(stacks, None)
+    assert torch.equal(full.float(), focus_stack(stacks, [4] * 3).float())
+    assert torch.equal(full.float(), focus_stack(stacks, torch.full((3,), 4, dtype=torch.int32)).float())
+    assert torch.equal(full.float(), focus_stack(stacks).float())
+
+
+def test_depths_as_a_tensor():
+    """An int32 tensor of depths gives what the same host values give; a
+    tensor of another type, length or device is refused, and a CPU tensor's
+    values are range-checked like host values."""
+    stacks = torch.from_numpy(np.random.RandomState(6).randint(0, 256, size=(3, 5, 17, 23)).astype(np.uint8))
+    ragged = [5, 2, 1]
+    assert torch.equal(focus_stack(stacks, torch.tensor(ragged, dtype=torch.int32)), focus_stack(stacks, ragged))
+    assert torch.equal(focus_stack(stacks, np.asarray(ragged, np.int64)), focus_stack(stacks, ragged))
+    for dtype in (torch.int64, torch.float32, torch.uint8):
+        with pytest.raises(TypeError, match="int32"):
+            focus_stack(stacks, torch.tensor(ragged, dtype=dtype))
+    for bad in ([5, 2], [5, 2, 1, 1], [[5, 2, 1]]):
+        with pytest.raises(ValueError, match="z_counts"):
+            focus_stack(stacks, torch.tensor(bad, dtype=torch.int32))
+    with pytest.raises(ValueError, match="z_counts"):
+        focus_stack(stacks, torch.tensor(ragged, dtype=torch.int32, device="meta"))
+    for bad in ([0, 2, 1], [6, 2, 1], [-1, 2, 1]):
+        with pytest.raises(ValueError, match="z_counts"):
+            focus_stack(stacks, torch.tensor(bad, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("kernel_size", [3, 5])
+def test_projection_of_one_stack_uploads_no_depths(kernel_size, monkeypatch):
+    """``proj_focus_stacking`` asks for the full depth with ``None``, so the
+    wrapper has no depths to check or upload, whatever the kernel size."""
+    seen = []
+    real = zproj.focus_stack
+
+    def spy(stacks, z_counts=None):
+        seen.append(z_counts)
+        return real(stacks, z_counts)
+
+    monkeypatch.setattr(zproj, "focus_stack", spy)
+    stack = np.random.RandomState(7).randint(0, 256, size=(4, 12, 14)).astype(np.uint8)
+    out = zproj.proj_focus_stacking(torch.from_numpy(stack), 0, kernel_size)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jzproj.proj_focus_stacking(jnp.asarray(stack), 0, kernel_size)))
+    assert seen == ([None] if kernel_size == 5 else [])

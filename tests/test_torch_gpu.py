@@ -21,6 +21,20 @@ from tmat_torch.ops import zproj
 SHAPES = [(2, 16, 8, 16), (2, 16, 4, 8), (2, 8, 8, 16), (3, 10, 5, 12), (2, 32, 64, 128),
           (2, 16, 128, 256), (2, 8, 256, 512), (2, 160, 64, 128), (2, 80, 128, 256),
           (2, 40, 256, 512)]
+# further shapes of the warpgroup form (C % 64 == 0, F % 128 == 0): pooled
+# sizes that leave the last tile ragged (5 and 10 against tile 8, 6 against
+# tile 4, 2 against 4), one image, batches that are multiples of nothing,
+# a single tile, and widths between and beside the production blocks'; and
+# shapes just outside it (F or C off the multiple), which the general form takes
+MORE_SHAPES = [(1, 10, 64, 128), (3, 20, 64, 128), (7, 12, 128, 256), (5, 4, 256, 512),
+               (1, 2, 64, 128), (3, 24, 128, 128), (2, 12, 64, 256), (1, 8, 192, 384),
+               (2, 12, 64, 192), (2, 12, 96, 128), (2, 12, 72, 136)]
+
+
+def expected_form(c, f, dtype):
+    """The form ``pick_config`` takes for 16-byte aligned tensors, at the
+    widths tested here (the warpgroup form's shared memory fits them all)."""
+    return "wgmma" if dtype == torch.bfloat16 and c % 64 == 0 and f % 128 == 0 else "wmma"
 
 
 @pytest.fixture
@@ -35,11 +49,13 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("first", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + MORE_SHAPES)
 def test_kernel_matches_plain(cuda, shape, dtype, first):
-    """f32: atol 2e-5. bf16: another summation order can move a rounding
-    of t or u by one bf16 step, so within 2**-6 of the largest output."""
+    """Both forms of the kernel, each at the shapes it takes. f32: atol
+    2e-5. bf16: another summation order can move a rounding of t or u by one
+    bf16 step, so within 2**-6 of the largest output."""
     b, h, c, f = shape
+    assert db.launch_form(c, f, dtype) == expected_form(c, f, dtype)
     x, blk = db.random_block(np.random.RandomState(0), b, h, c, f, dtype, cuda)
     before = db.launches
     out = db.down_block(x, blk, first)
@@ -51,18 +67,37 @@ def test_kernel_matches_plain(cuda, shape, dtype, first):
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
+# (C, F, dtype, (tile, x staged) or None where only the form is pinned, form)
+LAUNCHES = [
+    (64, 128, torch.bfloat16, (8, True), "wgmma"), (128, 256, torch.bfloat16, (4, True), "wgmma"),
+    (256, 512, torch.bfloat16, (4, True), "wgmma"), (128, 128, torch.bfloat16, (4, True), "wgmma"),
+    (64, 128, torch.float32, None, "wmma"), (128, 256, torch.float32, None, "wmma"),
+    (256, 512, torch.float32, None, "wmma"), (5, 12, torch.bfloat16, (8, True), "wmma"),
+    (64, 192, torch.bfloat16, None, "wmma"), (96, 128, torch.bfloat16, None, "wmma"),
+    (512, 1024, torch.bfloat16, (2, False), "wmma"), (512, 1024, torch.float32, None, None),
+]
+
+
 @pytest.mark.gpu
-def test_launch_configurations(cuda):
-    """The production blocks stage their x tile; a block too wide for that
-    reads x from global memory; one that fits nowhere is refused."""
-    assert [db.launch_config(c, f, torch.bfloat16) for _, _, c, f in SHAPES[-3:]] == [
-        (8, True), (4, True), (4, True)]
-    assert db.launch_config(512, 1024, torch.bfloat16) == (2, False)
-    with pytest.raises(ValueError, match="no down-block launch fits"):
-        db.launch_config(512, 1024, torch.float32)
-    x, blk = db.random_block(np.random.RandomState(3), 1, 4, 512, 1024, torch.float32, cuda)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        db.down_block(x, blk, True)
+@pytest.mark.parametrize("case", LAUNCHES, ids=lambda c: f"{c[0]}-{c[1]}-{str(c[2]).split('.')[-1]}")
+def test_launch_configurations(cuda, case):
+    """The bf16 production blocks take the warpgroup form with a staged x
+    tile (tile 8, 4, 4); float32, odd or off-multiple widths take the
+    general form; a block too wide for a staged x tile reads x from global
+    memory in the general form; one that fits nowhere is refused."""
+    c, f, dtype, config, form = case
+    if form is None:
+        with pytest.raises(ValueError, match="no down-block launch fits"):
+            db.launch_config(c, f, dtype)
+        with pytest.raises(ValueError, match="no down-block launch fits"):
+            db.launch_form(c, f, dtype)
+        x, blk = db.random_block(np.random.RandomState(3), 1, 4, c, f, dtype, cuda)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            db.down_block(x, blk, True)
+        return
+    assert db.launch_form(c, f, dtype) == form
+    if config is not None:
+        assert db.launch_config(c, f, dtype) == config
 
 
 @pytest.mark.gpu
@@ -77,22 +112,40 @@ def test_kernel_reading_x_from_global_matches_plain(cuda, first):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("which", ["all", "x", "w2", "b1", "out_of_step"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_takes_unaligned_tensors(cuda, dtype):
-    """Contiguous views that start off a 16-byte boundary take the kernel's
-    element-wise loads instead of its vector loads; same result."""
+def test_kernel_takes_unaligned_tensors(cuda, dtype, which):
+    """Contiguous views that start off a 16-byte boundary (all tensors, or
+    one of them alone) take the general form with its element-wise loads.
+    float32: the same result as aligned tensors, which take that form too.
+    bf16: aligned tensors take the warpgroup form, which sums in another
+    order, so both are held against the plain version."""
     x, blk = db.random_block(np.random.RandomState(2), 2, 16, 64, 128, dtype, cuda)
 
-    def shifted(t):
-        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-        view = buf[1:].view(t.shape)
+    def shifted(t, by=1):
+        buf = torch.empty(t.numel() + by, dtype=t.dtype, device=t.device)
+        view = buf[by:].view(t.shape)
         view.copy_(t)
         return view
 
-    out = db.down_block(shifted(x), {k: shifted(v) for k, v in blk.items()}, False)
-    ref = db.down_block(x, blk, False)
+    if which == "all":
+        xs, blks = shifted(x), {k: shifted(v) for k, v in blk.items()}
+    elif which == "x":
+        xs, blks = shifted(x), blk
+    elif which == "out_of_step":  # x on an 8-byte boundary only
+        xs, blks = shifted(x, 8 // x.element_size()), blk
+    else:
+        xs, blks = x, dict(blk, **{which: shifted(blk[which])})
+    assert xs.data_ptr() % 16 or any(v.data_ptr() % 16 for v in blks.values())
+    out = db.down_block(xs, blks, False)
+    aligned = db.down_block(x, blk, False)
+    ref = db.down_block_plain(x, blk, False)
     torch.cuda.synchronize()
-    assert torch.equal(out, ref)
+    if dtype == torch.float32:
+        assert torch.equal(out, aligned)
+    tol = 2e-5 if dtype == torch.float32 else 2.0 ** -6 * ref.float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert (aligned.float() - ref.float()).abs().max().item() <= tol
 
 
 @pytest.mark.gpu
@@ -143,6 +196,14 @@ FOCUS_CASES = [
     ("float32", (1, 5, 100, 150), None, 255), ("float32", (1, 3, 64, 64), None, 255),
     ("float32", (1, 8, 33, 257), None, 255), ("float32", (1, 3, 5, 5), None, 1),
     ("float32", (1, 3, 2, 3), None, 1), ("float32", (3, 4, 1, 7), (4, 1, 2), 1),
+    # interior tiles (cp.async, 4 elements a copy) and border tiles (index
+    # tables) on one image; widths off a multiple of 4 or 16 (tables only,
+    # or a ragged last tile); a single tile wide; one slice
+    ("uint8", (2, 5, 300, 1000), (5, 3), 255), ("uint8", (1, 4, 131, 250), None, 255),
+    ("uint8", (1, 4, 77, 244), None, 255), ("uint8", (3, 1, 64, 128), None, 255),
+    ("uint8", (1, 3, 40, 1028), None, 255), ("uint16", (2, 3, 100, 260), (3, 1), 65535),
+    ("uint16", (1, 2, 90, 1004), None, 4095), ("float32", (1, 4, 200, 512), None, 255),
+    ("float32", (2, 3, 72, 250), (2, 3), 255),
 ]
 
 
@@ -182,6 +243,25 @@ def test_focus_kernel_breaks_ties_by_the_first_slice(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["uint8", "uint16", "float32"])
+def test_focus_kernel_takes_depths_on_the_card_or_none(cuda, dtype):
+    """An int32 tensor of depths on the card is taken as it is, ``None`` is
+    the full depth (a null pointer to the kernel): each one launch, and the
+    projections of the same host values."""
+    stacks = focus_input(dtype, (3, 6, 150, 260), 255, seed=2).to(cuda)
+    ragged = [6, 2, 4]
+    before = fs.launches
+    on_card = fs.focus_stack(stacks, torch.tensor(ragged, dtype=torch.int32, device=cuda))
+    full = fs.focus_stack(stacks)
+    torch.cuda.synchronize()
+    assert fs.launches == before + 2
+    assert torch.equal(on_card.cpu(), fs.focus_stack(stacks, ragged).cpu())
+    assert torch.equal(full.cpu(), fs.focus_stack(stacks, [6] * 3).cpu())
+    assert fs.compare_with_plain(full, stacks)[:2] == (0, 0)
+    assert fs.compare_with_plain(on_card, stacks, ragged)[:2] == (0, 0)
+
+
+@pytest.mark.gpu
 def test_focus_wrapper_refuses(cuda):
     stacks = focus_input("uint8", (2, 4, 32, 48), 255).to(cuda)
     with pytest.raises(ValueError, match="not contiguous"):
@@ -193,13 +273,21 @@ def test_focus_wrapper_refuses(cuda):
             fs.focus_stack(stacks, bad)
     with pytest.raises(TypeError, match="uint8, uint16 or float32"):
         fs.focus_stack(stacks.to(torch.float16))
+    with pytest.raises(TypeError, match="int32"):
+        fs.focus_stack(stacks, torch.tensor([4, 4], device=cuda))  # int64
+    with pytest.raises(ValueError, match="z_counts"):
+        fs.focus_stack(stacks, torch.tensor([4, 4, 4], dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="z_counts"):
+        fs.focus_stack(stacks, torch.tensor([4, 4], dtype=torch.int32))  # on the CPU
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 3, 37, 61), (1, 3, 100, 400)])
 @pytest.mark.parametrize("dtype", ["uint8", "uint16", "float32"])
-def test_focus_kernel_takes_unaligned_tensors(cuda, dtype):
-    """A contiguous view that starts one element into its buffer."""
-    stacks = focus_input(dtype, (2, 3, 37, 61), 255).to(cuda)
+def test_focus_kernel_takes_unaligned_tensors(cuda, dtype, shape):
+    """A contiguous view that starts one element into its buffer: its
+    interior tiles go through the index tables too (no 4-element copies)."""
+    stacks = focus_input(dtype, shape, 255).to(cuda)
     buf = torch.empty(stacks.numel() + 1, dtype=stacks.dtype, device=cuda)
     view = buf[1:].view(stacks.shape)
     view.copy_(stacks)

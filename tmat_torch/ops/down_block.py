@@ -52,10 +52,23 @@ def launch_config(channels: int, features: int, dtype: torch.dtype) -> Tuple[int
     """(pooled-output tile side, whether the x tile is staged in shared
     memory) of the kernel's launch for a block of ``channels`` in and
     ``features`` out."""
+    code = _launch_code(channels, features, dtype)
+    return code % 100, code % 1000 < 100
+
+
+def launch_form(channels: int, features: int, dtype: torch.dtype) -> str:
+    """Which form of the kernel a block of 16-byte aligned tensors takes:
+    ``"wgmma"`` (warpgroup products, weights by TMA through a ring; bf16
+    with ``channels`` a multiple of 64 and ``features`` of 128) or
+    ``"wmma"`` (the general form: any widths, float32, unaligned bases)."""
+    return "wgmma" if _launch_code(channels, features, dtype) >= 1000 else "wmma"
+
+
+def _launch_code(channels: int, features: int, dtype: torch.dtype) -> int:
     code = _lib.get().tmat_down_block_tile(int(channels), int(features), _DTYPE_CODES[dtype])
     if code == 0:
         raise ValueError(f"no down-block launch fits {channels} -> {features} {dtype}")
-    return code % 100, code < 100
+    return code
 
 
 def random_block(rng, b: int, h: int, c: int, f: int, dtype: torch.dtype, device

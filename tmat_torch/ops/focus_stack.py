@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -97,25 +97,44 @@ def focus_scores(stacks: torch.Tensor) -> torch.Tensor:
     return torch.abs(dyy + dxx)
 
 
-def _check(stacks: torch.Tensor, z_counts) -> np.ndarray:
+def _check(stacks: torch.Tensor, z_counts) -> Optional[torch.Tensor]:
+    """The depths as an int32 tensor on the stacks' device, or None for
+    the full depth of every stack. Host values are range-checked; a
+    tensor must be int32, of length B and on the stacks' device, and is
+    taken as it is (its values are read on a CUDA device only by the kernel)."""
     if stacks.dim() != 4 or 0 in stacks.shape:
         raise ValueError(f"focus stacking needs a non-empty (B, Z, H, W) batch, got {tuple(stacks.shape)}")
     if stacks.dtype not in _DTYPE_CODES:
         raise TypeError(f"focus stacking takes uint8, uint16 or float32, got {stacks.dtype}")
     b, z = stacks.shape[:2]
     if z_counts is None:
-        return np.full(b, z, np.int32)
+        return None
     if isinstance(z_counts, torch.Tensor):
-        z_counts = z_counts.cpu().numpy()
+        if z_counts.dtype != torch.int32:
+            raise TypeError(f"a z_counts tensor must be int32, got {z_counts.dtype}")
+        if tuple(z_counts.shape) != (b,) or z_counts.device != stacks.device:
+            raise ValueError(
+                f"a z_counts tensor must hold {b} values on {stacks.device}, "
+                f"got {tuple(z_counts.shape)} on {z_counts.device}")
+        if z_counts.device.type == "cuda":
+            return z_counts.contiguous()
+        z_counts = z_counts.numpy()
     zc = np.asarray(z_counts).astype(np.int64).reshape(-1)
     if zc.shape != (b,) or zc.min() < 1 or zc.max() > z:
         raise ValueError(f"z_counts must be {b} values in 1..{z}, got {zc.tolist()}")
-    return zc.astype(np.int32)
+    return torch.as_tensor(zc.astype(np.int32), device=stacks.device)
 
 
-def _select(stacks: torch.Tensor, scores: torch.Tensor, zc: np.ndarray) -> torch.Tensor:
-    valid = torch.arange(stacks.shape[1], device=stacks.device)[None, :] < torch.as_tensor(
-        zc, device=stacks.device)[:, None]
+def _valid(stacks: torch.Tensor, zc: Optional[torch.Tensor]) -> torch.Tensor:
+    """(B, Z) mask of the slices that count."""
+    b, z = stacks.shape[:2]
+    if zc is None:
+        return torch.ones((b, z), dtype=torch.bool, device=stacks.device)
+    return torch.arange(z, device=stacks.device)[None, :] < zc[:, None]
+
+
+def _select(stacks: torch.Tensor, scores: torch.Tensor, zc: Optional[torch.Tensor]) -> torch.Tensor:
+    valid = _valid(stacks, zc)
     scores = torch.where(valid[:, :, None, None], scores, float("-inf"))
     best_z = torch.argmax(scores, dim=1, keepdim=True)  # the first of equal maxima
     # gathered on the float32 copy: uint16 tensors convert but do not index
@@ -142,8 +161,7 @@ def compare_with_plain(out: torch.Tensor, stacks: torch.Tensor, z_counts=None):
     n_diff = int(diff.sum())
     if n_diff == 0:
         return 0, 0, 0.0
-    valid = torch.arange(stacks.shape[1], device=stacks.device)[None, :] < torch.as_tensor(
-        _check(stacks, z_counts), device=stacks.device)[:, None]
+    valid = _valid(stacks, _check(stacks, z_counts))
     scores = torch.where(valid[:, :, None, None], focus_scores(stacks), float("-inf"))
     x = stacks.float()
 
@@ -160,7 +178,9 @@ def focus_stack(stacks: torch.Tensor,
                 ) -> torch.Tensor:
     """Focus-stacking projection of a contiguous (B, Z, H, W) batch: the
     CUDA kernel for a CUDA tensor, else the plain version. ``z_counts``
-    (host values, 1..Z per stack) masks Z padding."""
+    (1..Z per stack) masks Z padding: host values, which are checked and
+    uploaded, or an int32 tensor on the stacks' device, which is taken as
+    it is; None is the full depth and uploads nothing."""
     global launches
     if stacks.device.type != "cuda":
         return focus_stack_plain(stacks, z_counts)
@@ -168,10 +188,9 @@ def focus_stack(stacks: torch.Tensor,
     if not stacks.is_contiguous():
         raise ValueError("focus stacking input is not contiguous")
     b, z, h, w = stacks.shape
-    zc_dev = torch.as_tensor(zc, device=stacks.device)
     out = torch.empty((b, h, w), dtype=stacks.dtype, device=stacks.device)
     err = _lib.get().tmat_focus_stack(
-        stacks.data_ptr(), zc_dev.data_ptr(), out.data_ptr(), b, z, h, w,
+        stacks.data_ptr(), None if zc is None else zc.data_ptr(), out.data_ptr(), b, z, h, w,
         _DTYPE_CODES[stacks.dtype], torch.cuda.current_stream(stacks.device).cuda_stream,
     )
     if err != 0:

@@ -16,7 +16,7 @@ composition of ``ops/filters.py``.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -52,13 +52,15 @@ def proj_min(stack: torch.Tensor, axis: int = 0) -> torch.Tensor:
     return _as_sortable(stack).amin(dim=axis).to(stack.dtype)
 
 
-def focus_stack_conv(stacks: torch.Tensor, z_counts: Sequence[int], kernel_size: int = 5
+def focus_stack_conv(stacks: torch.Tensor, z_counts: Optional[Sequence[int]], kernel_size: int = 5
                      ) -> torch.Tensor:
     """Focus stacking of a (B, Z, H, W) batch through the ``conv2d``
     filters, for any odd ``kernel_size``; float32 scores, the source pixel
     of the first slice of the largest score, in the stacks' dtype."""
     x = stacks.float()
     scores = torch.abs(laplacian_cv2(gaussian_blur_cv2(x, kernel_size), kernel_size))
+    if z_counts is None:
+        z_counts = [x.shape[1]] * x.shape[0]
     zc = torch.as_tensor(np.asarray(z_counts, np.int64), device=x.device)
     valid = torch.arange(x.shape[1], device=x.device)[None, :] < zc[:, None]
     scores = torch.where(valid[:, :, None, None], scores, float("-inf"))
@@ -66,7 +68,8 @@ def focus_stack_conv(stacks: torch.Tensor, z_counts: Sequence[int], kernel_size:
     return torch.gather(x, 1, best_z)[:, 0].to(stacks.dtype)
 
 
-def _fs_batch(stacks: torch.Tensor, z_counts: Sequence[int], kernel_size: int) -> torch.Tensor:
+def _fs_batch(stacks: torch.Tensor, z_counts: Optional[Sequence[int]], kernel_size: int
+              ) -> torch.Tensor:
     if stacks.dtype not in _FOCUS_DTYPES:
         # the kernel takes uint8, uint16 and float32: other types go through
         # float32 and come back (exact below 2**24)
@@ -84,7 +87,7 @@ def proj_focus_stacking(stack: torch.Tensor, axis: int = 0, kernel_size: int = 5
         raise ValueError(f"focus stacking needs a 3-D stack, got {tuple(stack.shape)}")
     if axis != 0:
         stack = stack.movedim(axis, 0)
-    return _fs_batch(stack[None], [stack.shape[0]], kernel_size)[0]
+    return _fs_batch(stack[None], None, kernel_size)[0]  # None: the full depth
 
 
 PROJ_METHODS = {

@@ -1,14 +1,17 @@
 """Where the down-block kernel's cycles go, per phase, on the card.
 
-    python -m tmat_torch.tools.down_block_probe [--batch 200] [--seed 0]
+    python -m tmat_torch.tools.down_block_probe [--batch 200] [--seed 0] [--steps]
 
 Builds ``csrc/down_block.cu`` with ``-DTMAT_DOWN_BLOCK_PROBE`` (thread 0 of
-each CTA adds the clock64 cycles between its barriers to one counter per
-phase) into ``_build/libdown_block_probe.so``, runs each production block
+each CTA adds the clock64 cycles between its marks to one counter per
+stage) into ``_build/libdown_block_probe.so``, runs each production block
 (patch 320, filters 64-512) once in bf16, and prints one JSON line per
 block: the cycles per CTA and each phase's share, with the probe build's
-CUDA-event time. The probe build is only read here; the port never loads
-it. Needs a CUDA device.
+CUDA-event time. With ``--steps`` the build also defines
+``TMAT_DOWN_BLOCK_STEP_PROBE`` and the counters hold the parts of one
+weight-tile step of the warpgroup form (``STEP_PARTS``), printed as cycles
+per step. The probe builds are only read here; the port never loads them.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -23,7 +26,13 @@ import torch
 from tmat_torch import build
 from tmat_torch.ops import down_block as db
 
-PHASES = ("stage_x", "dw1", "stage_w1", "pw1", "dw2", "stage_w2", "pw2_residual", "pool")
+# the warpgroup form's stages (pw1 and pw2_residual include the wait for
+# their weight tiles), and the general form's
+PHASES = ("stage_x", "dw1", "pw1", "pw1_epilogue", "dw2", "pw2_residual", "pw2_epilogue", "pool")
+# the parts of a weight-tile step of the warpgroup form, on thread 0 (--steps)
+STEP_PARTS = ("wait_for_tile", "launch_products", "wait_for_products_before", "barrier", "request_next_tile",
+              "between_steps")
+PHASES_WMMA = ("stage_x", "dw1", "stage_w1", "pw1", "dw2", "stage_w2", "pw2_residual", "pool")
 BLOCK_SHAPES = ((160, 64, 128), (80, 128, 256), (40, 256, 512))
 
 
@@ -31,10 +40,12 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--batch", type=int, default=200)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--steps", action="store_true", help="the parts of a weight-tile step instead of the stages")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("down_block_probe: needs a CUDA device")
-    lib = ctypes.CDLL(str(build.cuda_library("down_block", ["TMAT_DOWN_BLOCK_PROBE"], "probe")))
+    defines = ["TMAT_DOWN_BLOCK_PROBE"] + (["TMAT_DOWN_BLOCK_STEP_PROBE"] if args.steps else [])
+    lib = ctypes.CDLL(str(build.cuda_library("down_block", defines, "step_probe" if args.steps else "probe")))
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.tmat_down_block.restype = i
     lib.tmat_down_block.argtypes = [vp] * 10 + [i] * 7 + [vp]
@@ -42,7 +53,7 @@ def main(argv=None) -> int:
     lib.tmat_down_block_tile.argtypes = [i, i, i]
     lib.tmat_down_block_probe_read.restype = i
     lib.tmat_down_block_probe_read.argtypes = [vp]
-    counters = (ctypes.c_ulonglong * len(PHASES))()
+    counters = (ctypes.c_ulonglong * 8)()
 
     library = db._lib._lib
     db._lib._lib = lib
@@ -63,13 +74,26 @@ def main(argv=None) -> int:
             if lib.tmat_down_block_probe_read(ctypes.addressof(counters)) != 0:
                 raise RuntimeError("reading the probe counters failed")
             tile, staged = db.launch_config(c, f, torch.bfloat16)
+            form = db.launch_form(c, f, torch.bfloat16)
+            names = PHASES if form == "wgmma" else PHASES_WMMA
             ctas = args.batch * (-(-(h // 2) // tile)) ** 2
             per_cta = [v / ctas for v in counters]
             total = sum(per_cta)
+            if args.steps:
+                if form != "wgmma":
+                    raise RuntimeError("--steps reads the warpgroup form only")
+                steps = counters[6] / ctas  # counted by the kernel: one a weight tile
+                print(json.dumps({
+                    "shape": [args.batch, h, h, c, f], "form": form, "tile": tile, "steps_per_cta": steps,
+                    "probe_ms": start.elapsed_time(end),
+                    "cycles_per_step": {n: v / steps for n, v in zip(STEP_PARTS, per_cta)},
+                    "device": torch.cuda.get_device_name(0),
+                }), flush=True)
+                continue
             print(json.dumps({
-                "shape": [args.batch, h, h, c, f], "tile": tile, "x_staged": staged,
+                "shape": [args.batch, h, h, c, f], "form": form, "tile": tile, "x_staged": staged,
                 "probe_ms": start.elapsed_time(end), "cycles_per_cta": total,
-                "share": {n: v / total for n, v in zip(PHASES, per_cta)},
+                "share": {n: v / total for n, v in zip(names, per_cta)},
                 "device": torch.cuda.get_device_name(0),
             }), flush=True)
     finally:
