@@ -473,15 +473,17 @@ down_block_kernel(const T* __restrict__ x, const T* __restrict__ dw1,
 //     swizzle on k: what the TMA writes for a 64 x 64 box of the weight's
 //     tensor map, so no transposed copy of a weight exists.
 // Weight tiles flow through a ring of 2-4 stages in one order (pw1:
-// chunk-major over w1; then per chunk w2's tiles and wr's). One thread asks
-// the TMA for a tile and an mbarrier counts its bytes off; the products of
+// chunk-major over w1; then per chunk w2's tiles and wr's); where phase 1
+// leaves room behind (xdw and the t chunk are dead in phase 2), phase 2
+// starts a longer ring of its own. One thread asks the TMA for a tile and
+// an mbarrier counts its bytes off; the products of
 // tile s are launched as soon as it has landed and stay in flight while those
 // of tile s + 1 are launched, and the stage of tile s is refilled when every
 // warpgroup has waited for its products on it: one barrier per 64 x NCH tile
 // where the general form has three per 32-column chunk, and the tensor cores
 // never drain inside a chunk. The thread that asks walks the order with
-// counters: dividing a tile's index by run-time widths cost it 640 cycles a
-// tile, more than the tile's products.
+// counters: dividing a tile's index by run-time widths cost it more cycles
+// a tile than the tile's products take.
 // The epilogues read the accumulator registers: t goes to shared memory once
 // as bf16 (bias, relu, rounding, zero outside the image), u once as f32 (bias,
 // -inf outside). The depthwise passes walk along a tile row with a 3x3 window
@@ -499,9 +501,9 @@ down_block_kernel(const T* __restrict__ x, const T* __restrict__ dw1,
 //     128-column chunk (block 3, whose shared memory leaves the ring 2 stages).
 // Measured on an H100 and not kept (PERF.md): weight tiles by cp.async from
 // all threads; a producer warp with full/empty mbarriers; 2- and 4-CTA
-// cluster multicast of the tiles; 32-row tiles in deeper rings; a ring
-// lengthened in phase 2; four channels a lane in the depthwise walks; dw2
-// and the pool of the chunk before run under the next chunk's products.
+// cluster multicast of the tiles; 32-row tiles in deeper rings; four
+// channels a lane in the depthwise walks; dw2 and the pool of the chunk
+// before run under the next chunk's products.
 
 namespace wg {
 
@@ -623,10 +625,11 @@ template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 // Shared-memory layout, byte offsets from a 1024-byte aligned base.
 //   [xdw [ma1][C] | tch [P1][NCH+8] bf16]  (phase 1)  overlaid by
 //   [ubuf [P2][NCH+8] f32 | rbuf [T*T][NCH+8] f32 | xs [ma3][C]]  (phase 2)
+//   [... | further ring stages]                         (phase 2)
 //   d2 [ma2][F] overlaid on xt [SX*SX][C]   ring [stages][64][NCH]
 struct Layout {
-  uint32_t xdw, tch, ubuf, rbuf, xs, d2, ring, bars, total;
-  int ma1, ma2, ma3;
+  uint32_t xdw, tch, ubuf, rbuf, xs, extra, d2, ring, bars, total;
+  int ma1, ma2, ma3, extra_stages;
 };
 
 __host__ __device__ inline uint32_t align_up(uint32_t v, uint32_t a) { return (v + a - 1) / a * a; }
@@ -646,11 +649,16 @@ __host__ __device__ Layout layout(int C, int F, int stages) {
   L.xs = align_up(L.rbuf + uint32_t(TILE * TILE) * (NCH + 8) * 4, 1024);
   const uint32_t end2 = L.xs + uint32_t(L.ma3) * C * 2;
   L.d2 = align_up(end1 > end2 ? end1 : end2, 1024);
+  // phase 2 has a ring of its own: the stages below and as many more (up to
+  // MAX_STAGES in all) as fit into what phase 1 leaves behind
+  L.extra = align_up(end2, 1024);
+  const int room = L.extra < L.d2 ? int((L.d2 - L.extra) / (KT * NCH * 2)) : 0;
+  L.extra_stages = room < MAX_STAGES - stages ? room : MAX_STAGES - stages;
   const uint32_t d2_bytes = uint32_t(L.ma2) * F * 2;
   const uint32_t xt_bytes = uint32_t(G::SX * G::SX) * C * 2;
   L.ring = align_up(L.d2 + (d2_bytes > xt_bytes ? d2_bytes : xt_bytes), 1024);
-  L.bars = L.ring + uint32_t(stages) * KT * NCH * 2;  // one mbarrier a stage
-  L.total = L.bars + 8 * MAX_STAGES + 1024;  // 1024: slack to align the base
+  L.bars = L.ring + uint32_t(stages) * KT * NCH * 2;  // one mbarrier a stage and phase
+  L.total = L.bars + 16 * MAX_STAGES + 1024;  // 1024: slack to align the base
   return L;
 }
 
@@ -754,17 +762,25 @@ down_block_wgmma_kernel(const __grid_constant__ CUtensorMap tm_w1,
   // One thread asks the TMA for the next tile of the order; its bytes are
   // counted off on the stage's barrier. The order is walked with counters:
   // a division by a run-time width costs that thread hundreds of cycles.
-  const uint32_t full = smem_u32(smem + L.bars);
-  int i_left = n_tiles, i_stage = 0, i_mat = 0, i_nc = 0, i_kt = 0;  // i_mat: 0 w1, 1 w2, 2 wr
+  // Where phase 1 leaves room for more stages (L.extra_stages, where xdw and
+  // the t chunk were), phase 2 starts a longer ring of its own, with its own
+  // barriers; else one ring runs through both phases.
+  const uint32_t extra = smem_u32(smem + L.extra);
+  uint32_t full = smem_u32(smem + L.bars);
+  int n_st = stages;
+  auto stage_addr = [&](int i) {
+    return i < stages ? ring + uint32_t(i) * STAGE_BYTES : extra + uint32_t(i - stages) * STAGE_BYTES;
+  };
+  int i_left = L.extra_stages ? n_tiles1 : n_tiles, i_stage = 0, i_mat = 0, i_nc = 0, i_kt = 0;  // i_mat: 0 w1, 1 w2, 2 wr
   auto request_tile = [&]() {
     if (tid != 0 || i_left == 0) return;
     const CUtensorMap* tm = i_mat == 0 ? &tm_w1 : i_mat == 1 ? &tm_w2 : &tm_wr;
-    const uint32_t bar = full + 8 * i_stage, dst = ring + uint32_t(i_stage) * STAGE_BYTES;
+    const uint32_t bar = full + 8 * i_stage, dst = stage_addr(i_stage);
     mbar_expect_tx(bar, STAGE_BYTES);
     for (int pn = 0; pn < NCH / 64; ++pn)
       tma_load_2d(dst + pn * (KT * 128), tm, i_nc * NCH + pn * 64, i_kt * KT, bar);
     --i_left;
-    if (++i_stage == stages) i_stage = 0;
+    if (++i_stage == n_st) i_stage = 0;
     ++i_kt;
     if (i_mat == 0) {  // w1: chunk-major
       if (i_kt == KC) {
@@ -785,8 +801,8 @@ down_block_wgmma_kernel(const __grid_constant__ CUtensorMap tm_w1,
     STEP_COUNT(6);
     mbar_wait(full + 8 * c_stage, c_parity);
     STEP_MARK(0);  // the wait for the tile
-    const uint32_t stage = ring + uint32_t(c_stage) * STAGE_BYTES;
-    if (++c_stage == stages) c_stage = 0, c_parity ^= 1;
+    const uint32_t stage = stage_addr(c_stage);
+    if (++c_stage == n_st) c_stage = 0, c_parity ^= 1;
     return stage;
   };
   // A tile's products stay in flight while the next tile's are launched; the
@@ -800,7 +816,7 @@ down_block_wgmma_kernel(const __grid_constant__ CUtensorMap tm_w1,
     STEP_MARK(4);  // the request for the next tile
   };
   if (tid == 0) {
-    for (int i = 0; i < stages; ++i) mbar_init(full + 8 * i, 1);
+    for (int i = 0; i < 2 * MAX_STAGES; ++i) mbar_init(full + 8 * i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -927,8 +943,14 @@ down_block_wgmma_kernel(const __grid_constant__ CUtensorMap tm_w1,
   }
 
   // ---------------- phase 2: u = pw2(d2) + b2, the residual, pool ----------------
-  // The residual's samples x[::2, ::2] go where xdw was (the x tile is gone).
+  // The residual's samples x[::2, ::2] go where xdw was (the x tile is gone),
+  // and phase 2's own ring starts (phase 1 has taken all its tiles).
   __syncthreads();
+  if (L.extra_stages) {
+    full += 8 * MAX_STAGES, n_st = stages + L.extra_stages;
+    i_left = n_tiles - n_tiles1, i_stage = 0, c_stage = 0, c_parity = 0;
+    for (int s = 0; s < n_st; ++s) request_tile();
+  }
   {
     const int cpp = C / 8;
     for (int i = tid; i < TILE * TILE * cpp; i += NTH) {
