@@ -38,7 +38,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -47,20 +46,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from tmat_torch.tools.timing import BLOCK_SHAPES, card_line, cuda_ms, stack_pool
+
 # H100 SXM dense peaks and memory rate (NVIDIA data sheet): bf16 products on
 # the tensor cores, f32 on the CUDA cores
 PEAK_BF16_TC = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 SHIPPED_CFG = "model_training/binary_segmentation/configs/unet_patch_segmentor_1.json"
-# (H, C, F) of the production down blocks: patch 320, filters 64-128-256-512
-BLOCK_SHAPES = [(160, 64, 128), (80, 128, 256), (40, 256, 512)]
 # (B, H, C, F) of a block that only the kernel's general form takes (odd widths)
 ODD_BLOCK = (3, 10, 5, 12)
-# the kernels' times before their redesign for this card (NVIDIA H100 80GB
-# HBM3, 700.00 W): the three production blocks together, and one uint8
-# (1, 8, 1024, 1024) stack with host z_counts
-EARLIER_MS = {"down_block": 29.87, "focus_stack": 0.0986}
 TOL = {torch.float32: 2e-5}  # bf16: 2**-6 of the output's largest magnitude
 # focus stacking, per pixel and slice: multiply-adds of the taps (blur 2 x 5,
 # Laplacian 2 x (3 + 5)), two operations each, and the compare
@@ -78,25 +73,6 @@ PLATE_FS_Z_COUNTS = (8, 8, 6, 8, 5, 8, 8, 7)
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
-
-
-def smi_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout.strip() else "not measured"
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean ms of ``fn()`` over ``reps`` calls, CUDA events, after a warm call."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def block_work(b: int, h: int, c: int, f: int, dtype: torch.dtype) -> dict:
@@ -149,19 +125,21 @@ def phase_kernel(rng, device):
             x, blk = db.random_block(rng, b, h, c, f, dtype, device)
             for first in (True, False):
                 out = db.down_block(x, blk, first)
+                form = db.last_launch()[0]  # what was launched for these tensors
                 ref = db.down_block_plain(x, blk, first)
                 torch.cuda.synchronize()
                 err = (out.float() - ref.float()).abs().max().item()
                 tol = TOL.get(dtype, 2.0 ** -6 * ref.float().abs().max().item())
                 errors.append({"shape": [b, h, h, c, f], "dtype": str(dtype), "first": first,
-                               "form": db.launch_form(c, f, dtype), "max_abs_err": err, "tol": tol})
+                               "form": form, "max_abs_err": err, "tol": tol})
                 if not (err <= tol and torch.isfinite(out.float()).all()):
                     raise AssertionError(f"down block kernel disagrees with its plain version: {errors[-1]}")
     forms = {(e["form"], e["dtype"]) for e in errors}
     if not {("wgmma", "torch.bfloat16"), ("wmma", "torch.bfloat16"), ("wmma", "torch.float32")} <= forms:
         raise AssertionError(f"a form of the down-block kernel was not held against the plain version: {forms}")
-    if any(db.launch_form(c, f, torch.bfloat16) != "wgmma" for _, c, f in BLOCK_SHAPES):
-        raise AssertionError("a production block does not take the warpgroup form")
+    if any(e["form"] != "wgmma" for e in errors
+           if e["dtype"] == "torch.bfloat16" and tuple(e["shape"][2:]) in BLOCK_SHAPES):
+        raise AssertionError("a production block was not launched in the warpgroup form")
     emit("kernel_check", cases=errors)
 
     timings = []
@@ -169,11 +147,11 @@ def phase_kernel(rng, device):
         x, blk = db.random_block(rng, 200, h, c, f, torch.bfloat16, device)
         first = h == BLOCK_SHAPES[0][0]
         kernel_ms = cuda_ms(lambda: db.down_block(x, blk, first), 10)
+        form, tile, staged = db.last_launch()  # of the launches that were timed
         plain_ms = cuda_ms(lambda: db.down_block_plain(x, blk, first), 10)
         timings.append({"shape": [200, h, h, c, f], "dtype": "bfloat16", "ms": kernel_ms,
                         "plain_ms": plain_ms, **block_work(200, h, c, f, torch.bfloat16),
-                        "tile": db.launch_config(c, f, torch.bfloat16),
-                        "form": db.launch_form(c, f, torch.bfloat16)})
+                        "tile": [tile, staged], "form": form})
     emit("kernel_time", blocks=timings)
     return errors, timings
 
@@ -309,22 +287,15 @@ def phase_focus_time(rng, device):
 
     timings = []
     for b in (1, 8):
-        # 64 MB of stacks in turn, more than the 50 MB L2, so each call reads device memory
-        pool = [torch.from_numpy(rng.randint(0, 256, (b, 8, 1024, 1024)).astype(np.uint8)).to(device)
-                for _ in range(8 // b)]
-        turn = [0]
-
-        def nxt():
-            turn[0] += 1
-            return pool[turn[0] % len(pool)]
-
+        nxt = stack_pool(rng, b, device)  # each call reads device memory, not L2
         zc = [8] * b
+        # 100 calls each: a call is short enough for one stall of the host to show in 20
         timings.append({
             "shape": [b, 8, 1024, 1024], "dtype": "uint8",
             # full depth, nothing uploaded: what ``project`` launches
-            "ms": cuda_ms(lambda: fs.focus_stack(nxt()), 20),
+            "ms": cuda_ms(lambda: fs.focus_stack(nxt()), 100),
             # host depths, checked and uploaded with every call: what a plate chunk launches
-            "host_counts_ms": cuda_ms(lambda: fs.focus_stack(nxt(), zc), 20),
+            "host_counts_ms": cuda_ms(lambda: fs.focus_stack(nxt(), zc), 100),
             "plain_ms": cuda_ms(lambda: fs.focus_stack_plain(nxt(), zc), 3),
             "conv_ms": cuda_ms(lambda: focus_stack_conv(nxt(), zc), 3),
             **focus_work(zc, 1024, 1024, 1),
@@ -493,7 +464,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
-    smi = smi_line()
+    smi = card_line()
     emit("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
 
@@ -531,7 +502,6 @@ def main(argv=None) -> int:
         "bound_by": ("operations" if sum(t["ops_ms"] for t in timings) >= sum(t["bytes_ms"] for t in timings)
                      else "bytes"),
         "library_ms": None,
-        "earlier_ms": EARLIER_MS["down_block"],
         "blocks": [{"shape": t["shape"], "ms": t["ms"], "bound_ms": t["bound_ms"], "form": t["form"],
                     "tile": t["tile"][0]} for t in timings],
     }, {
@@ -552,7 +522,6 @@ def main(argv=None) -> int:
         "bound_ms": one_stack["bound_ms"],
         "bound_by": one_stack["bound_by"],
         "library_ms": None,
-        "earlier_ms": EARLIER_MS["focus_stack"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -199,3 +199,35 @@ def test_projection_of_one_stack_uploads_no_depths(kernel_size, monkeypatch):
     out = zproj.proj_focus_stacking(torch.from_numpy(stack), 0, kernel_size)
     np.testing.assert_array_equal(out.numpy(), np.asarray(jzproj.proj_focus_stacking(jnp.asarray(stack), 0, kernel_size)))
     assert seen == ([None] if kernel_size == 5 else [])
+
+
+@pytest.mark.parametrize("z_counts, handed", [(None, None), ([4, 4, 4], None), (np.array([4, 4, 4]), None),
+                                              ([4, 2, 4], [4, 2, 4]), ([4, 4], [4, 4])])
+def test_a_chunk_at_full_depth_uploads_no_depths(z_counts, handed, monkeypatch):
+    """``plate_zproj_masked`` and ``proj_masked_batch`` hand the wrapper
+    ``None`` when every stack of the chunk has its full depth, and the
+    depths as given when one is shorter or their number is wrong (which the
+    wrapper then refuses)."""
+    from tmat_torch.parallel.plate import plate_zproj_masked
+
+    seen = []
+    real = zproj.focus_stack
+
+    def spy(stacks, z_counts=None):
+        seen.append(z_counts)
+        return real(stacks, z_counts)
+
+    monkeypatch.setattr(zproj, "focus_stack", spy)
+    stacks = torch.from_numpy(np.random.RandomState(8).randint(0, 256, size=(3, 4, 15, 18)).astype(np.uint8))
+    if handed is not None and len(handed) != 3:
+        with pytest.raises(ValueError, match="z_counts"):
+            plate_zproj_masked(stacks, z_counts, "fs")
+        assert seen == [handed]
+        return
+    out = plate_zproj_masked(stacks, z_counts, "fs")
+    assert seen == [handed]
+    want = focus_stack_plain(stacks, [4] * 3 if z_counts is None else list(z_counts)).float()
+    assert torch.equal(out, want)
+    for method in ("max", "min", "avg", "med"):  # None is the full depth for these too
+        full = zproj.proj_masked_batch(stacks, None, method)
+        assert torch.equal(full, zproj.proj_masked_batch(stacks, [4] * 3, method))

@@ -61,6 +61,7 @@ def test_kernel_matches_plain(cuda, shape, dtype, first):
     out = db.down_block(x, blk, first)
     torch.cuda.synchronize()
     assert db.launches == before + 1
+    assert db.last_launch()[0] == expected_form(c, f, dtype)  # what these tensors were given
     ref = db.down_block_plain(x, blk, first)
     assert out.shape == ref.shape and out.dtype == dtype
     tol = 2e-5 if dtype == torch.float32 else 2.0 ** -6 * ref.float().abs().max().item()
@@ -94,10 +95,16 @@ def test_launch_configurations(cuda, case):
         x, blk = db.random_block(np.random.RandomState(3), 1, 4, c, f, dtype, cuda)
         with pytest.raises(RuntimeError, match="launch failed"):
             db.down_block(x, blk, True)
+        with pytest.raises(RuntimeError, match="launched no kernel"):
+            db.last_launch()
         return
     assert db.launch_form(c, f, dtype) == form
     if config is not None:
         assert db.launch_config(c, f, dtype) == config
+    # what a launch on aligned tensors reports is what the query said
+    x, blk = db.random_block(np.random.RandomState(3), 1, 4, c, f, dtype, cuda)
+    db.down_block(x, blk, True)
+    assert db.last_launch() == (form, *db.launch_config(c, f, dtype))
 
 
 @pytest.mark.gpu
@@ -138,7 +145,9 @@ def test_kernel_takes_unaligned_tensors(cuda, dtype, which):
         xs, blks = x, dict(blk, **{which: shifted(blk[which])})
     assert xs.data_ptr() % 16 or any(v.data_ptr() % 16 for v in blks.values())
     out = db.down_block(xs, blks, False)
+    assert db.last_launch()[0] == "wmma"  # though the shape's query says wgmma for bf16
     aligned = db.down_block(x, blk, False)
+    assert db.last_launch()[0] == db.launch_form(64, 128, dtype)
     ref = db.down_block_plain(x, blk, False)
     torch.cuda.synchronize()
     if dtype == torch.float32:
@@ -259,6 +268,18 @@ def test_focus_kernel_takes_depths_on_the_card_or_none(cuda, dtype):
     assert torch.equal(full.cpu(), fs.focus_stack(stacks, [6] * 3).cpu())
     assert fs.compare_with_plain(full, stacks)[:2] == (0, 0)
     assert fs.compare_with_plain(on_card, stacks, ragged)[:2] == (0, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+def test_focus_kernel_holds_depths_on_the_card_to_the_stack(cuda, dtype):
+    """The host cannot check depths that live on the card: the kernel takes a
+    value under 1 as 1 and one over Z as Z, so it neither reads past the
+    stack nor leaves a projection unwritten."""
+    stacks = focus_input(dtype, (4, 5, 70, 150), 255, seed=3).to(cuda)
+    wild = torch.tensor([0, 9, -3, 2], dtype=torch.int32, device=cuda)
+    out = fs.focus_stack(stacks, wild)
+    assert torch.equal(out.cpu(), fs.focus_stack(stacks, [1, 5, 1, 2]).cpu())
 
 
 @pytest.mark.gpu

@@ -999,9 +999,14 @@ down_block_wgmma_kernel(const __grid_constant__ CUtensorMap tm_w1,
                          make_desc(stage + (res_col / 64) * (KT * 128) + ks * 2048, KT * 128, 1024),
                          kt | ks);
         wgmma_commit();
+        STEP_MARK(1);
+        wgmma_wait_but_one();
+      } else {
+        // no group of this step: all of pw2's products on the tile that is
+        // released below must have read it
+        STEP_MARK(1);
+        wgmma_wait_all();
       }
-      STEP_MARK(1);
-      wgmma_wait_but_one();
       STEP_MARK(2);
       if (tile_held) release_tile();
       tile_held = true;
@@ -1199,6 +1204,10 @@ int pick_config(int C, int F) {
   return 0;
 }
 
+// What this thread's last call launched: tmat_down_block_tile's code, 0
+// before the first launch and after a call that launched nothing.
+thread_local int last_launch_code = 0;
+
 template <typename T>
 cudaError_t dispatch(const void* x, const void* dw1, const void* w1, const void* b1,
                      const void* dw2, const void* w2, const void* b2, const void* wr,
@@ -1209,6 +1218,7 @@ cudaError_t dispatch(const void* x, const void* dw1, const void* w1, const void*
     if (cfg.tile && wg::aligned16_all({x, dw1, w1, b1, dw2, w2, b2, wr, br, out})) {
 #define TMAT_WG_LAUNCH(...) \
   wg::launch<__VA_ARGS__>(x, dw1, w1, b1, dw2, w2, b2, wr, br, out, B, H, W, C, F, first, cfg.stages, s)
+      last_launch_code = 1000 + cfg.tile;
       if (cfg.tile == 8) return TMAT_WG_LAUNCH(8, 3, 2, 64, 1);
       if (cfg.warpgroups == 2) return TMAT_WG_LAUNCH(4, 2, 1, 64, 2);
       return TMAT_WG_LAUNCH(4, 4, 1, 128, 1);
@@ -1217,7 +1227,7 @@ cudaError_t dispatch(const void* x, const void* dw1, const void* w1, const void*
   }
 #define TMAT_LAUNCH(TL, ST) \
   launch<TL, ST, T>(x, dw1, w1, b1, dw2, w2, b2, wr, br, out, B, H, W, C, F, first, s)
-  switch (pick_config<T>(C, F)) {
+  switch (last_launch_code = pick_config<T>(C, F)) {
     case 8: return TMAT_LAUNCH(8, true);
     case 4: return TMAT_LAUNCH(4, true);
     case 2: return TMAT_LAUNCH(2, true);
@@ -1239,6 +1249,7 @@ int tmat_down_block(const void* x, const void* dw1, const void* w1, const void* 
                     const void* dw2, const void* w2, const void* b2, const void* wr,
                     const void* br, void* out, int B, int H, int W, int C, int F,
                     int first, int dtype, void* stream) {
+  last_launch_code = 0;
   if (B <= 0 || H <= 0 || W <= 0 || (H | W) & 1 || C <= 0 || F <= 0 || B > 65535)
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1257,6 +1268,11 @@ int tmat_down_block_tile(int C, int F, int dtype) {
   const wg::Config cfg = wg::pick_config(C, F);
   return cfg.tile ? 1000 + cfg.tile : pick_config<__nv_bfloat16>(C, F);
 }
+
+// The configuration that the calling thread's last tmat_down_block launched,
+// as tmat_down_block_tile codes it: what dispatch took for those tensors,
+// their alignment included. 0 if that call launched nothing.
+int tmat_down_block_last_launch() { return last_launch_code; }
 
 #ifdef TMAT_DOWN_BLOCK_PROBE
 // Copy the 8 phase counters to host memory and zero them.

@@ -136,7 +136,9 @@ focus_stack_kernel(const In* __restrict__ stack, const int* __restrict__ z_count
 
     const size_t plane = (size_t)H * (size_t)W;
     const In* src = stack + (size_t)b * (size_t)Z * plane;
-    const int z_count = z_counts ? z_counts[b] : Z;
+    // depths from the device are not seen by the host: held to 1..Z here, so
+    // that none reads past the stack or leaves the projection unwritten
+    const int z_count = z_counts ? min(max(z_counts[b], 1), Z) : Z;
 
     In pre[PRE];
     // start the fetch of a slice: copies in flight, or loads into registers
@@ -281,8 +283,9 @@ int launch(const void* stack, const int* z_counts, void* out, int B, int Z, int 
 
 }  // namespace
 
-// dtype: 0 = uint8, 1 = uint16, 2 = float32. z_counts: B device ints in 1..Z,
-// or null for the full depth Z of every stack. Returns the launch's CUDA
+// dtype: 0 = uint8, 1 = uint16, 2 = float32. z_counts: B device ints (values
+// outside 1..Z count as the nearer end), or null for the full depth Z of
+// every stack. Returns the launch's CUDA
 // error code (0 = launched); -1 for a dtype or grid this kernel does not take.
 extern "C" int tmat_focus_stack(const void* stack, const int* z_counts, void* out, int B, int Z,
                                 int H, int W, int dtype, void* stream) {

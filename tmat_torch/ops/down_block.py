@@ -42,6 +42,8 @@ def _load_library() -> ctypes.CDLL:
     lib.tmat_down_block.argtypes = [vp] * 10 + [i] * 7 + [vp]
     lib.tmat_down_block_tile.restype = i
     lib.tmat_down_block_tile.argtypes = [i, i, i]
+    lib.tmat_down_block_last_launch.restype = i
+    lib.tmat_down_block_last_launch.argtypes = []
     return lib
 
 
@@ -62,6 +64,17 @@ def launch_form(channels: int, features: int, dtype: torch.dtype) -> str:
     with ``channels`` a multiple of 64 and ``features`` of 128) or
     ``"wmma"`` (the general form: any widths, float32, unaligned bases)."""
     return "wgmma" if _launch_code(channels, features, dtype) >= 1000 else "wmma"
+
+
+def last_launch() -> Tuple[str, int, bool]:
+    """(form, tile side, whether x was staged) of the kernel that the calling
+    thread's last ``down_block`` launched: what the library took for those
+    tensors, their alignment included, where ``launch_form`` and
+    ``launch_config`` say what aligned tensors of a shape would take."""
+    code = _lib.get().tmat_down_block_last_launch()
+    if code == 0:
+        raise RuntimeError("this thread's last down-block call launched no kernel")
+    return "wgmma" if code >= 1000 else "wmma", code % 100, code % 1000 < 100
 
 
 def _launch_code(channels: int, features: int, dtype: torch.dtype) -> int:

@@ -100,8 +100,9 @@ def focus_scores(stacks: torch.Tensor) -> torch.Tensor:
 def _check(stacks: torch.Tensor, z_counts) -> Optional[torch.Tensor]:
     """The depths as an int32 tensor on the stacks' device, or None for
     the full depth of every stack. Host values are range-checked; a
-    tensor must be int32, of length B and on the stacks' device, and is
-    taken as it is (its values are read on a CUDA device only by the kernel)."""
+    tensor must be int32, of length B and on the stacks' device; on a CUDA
+    device it is taken as it is, since only the kernel reads its values,
+    and the kernel holds each to 1..Z."""
     if stacks.dim() != 4 or 0 in stacks.shape:
         raise ValueError(f"focus stacking needs a non-empty (B, Z, H, W) batch, got {tuple(stacks.shape)}")
     if stacks.dtype not in _DTYPE_CODES:
@@ -180,7 +181,8 @@ def focus_stack(stacks: torch.Tensor,
     CUDA kernel for a CUDA tensor, else the plain version. ``z_counts``
     (1..Z per stack) masks Z padding: host values, which are checked and
     uploaded, or an int32 tensor on the stacks' device, which is taken as
-    it is; None is the full depth and uploads nothing."""
+    it is (the kernel holds its values to 1..Z); None is the full depth and
+    uploads nothing."""
     global launches
     if stacks.device.type != "cuda":
         return focus_stack_plain(stacks, z_counts)

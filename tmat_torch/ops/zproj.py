@@ -99,16 +99,22 @@ PROJ_METHODS = {
 }
 
 
-def proj_masked_batch(stacks: torch.Tensor, z_counts: Sequence[int], method: str,
+def proj_masked_batch(stacks: torch.Tensor, z_counts: Optional[Sequence[int]], method: str,
                       kernel_size: int = 5) -> torch.Tensor:
     """float32 projections of a Z-padded (B, Z, H, W) batch over each
     stack's first ``z_counts[b]`` slices: max/min see -/+inf in the
     padding, avg divides by the true count, med is the mean of the two
     middle order statistics of the valid prefix (np.median), fs leaves
     padded slices out of the sharpness argmax (one kernel launch for the
-    whole batch on a CUDA device)."""
+    whole batch on a CUDA device). ``None`` is the full depth of every
+    stack; a batch at full depth hands ``fs`` no depths, so none is
+    uploaded."""
+    b, z = stacks.shape[:2]
+    if z_counts is None:
+        z_counts = [z] * b
     if method == "fs":
-        return _fs_batch(stacks, z_counts, kernel_size).float()
+        full = len(z_counts) == b and all(int(c) == z for c in z_counts)
+        return _fs_batch(stacks, None if full else z_counts, kernel_size).float()
     x = stacks.float()
     zc = torch.as_tensor(np.asarray(z_counts, np.int64), device=x.device)
     valid = (torch.arange(x.shape[1], device=x.device)[None, :] < zc[:, None])[:, :, None, None]

@@ -58,8 +58,6 @@ def plate_zproj_masked(stacks: torch.Tensor, z_counts: Optional[Sequence[int]] =
                        method: str = "max") -> torch.Tensor:
     """float32 projections of a ragged (B, Z, H, W) chunk: ``z_counts``
     mask each well's Z padding out of the reduction (all of Z when None)."""
-    if z_counts is None:
-        z_counts = [stacks.shape[1]] * stacks.shape[0]
     return proj_masked_batch(stacks, z_counts, method)
 
 

@@ -25,6 +25,7 @@ import torch
 
 from tmat_torch import build
 from tmat_torch.ops import down_block as db
+from tmat_torch.tools.timing import BLOCK_SHAPES
 
 # the warpgroup form's stages (pw1 and pw2_residual include the wait for
 # their weight tiles), and the general form's
@@ -33,7 +34,6 @@ PHASES = ("stage_x", "dw1", "pw1", "pw1_epilogue", "dw2", "pw2_residual", "pw2_e
 STEP_PARTS = ("wait_for_tile", "launch_products", "wait_for_products_before", "barrier", "request_next_tile",
               "between_steps")
 PHASES_WMMA = ("stage_x", "dw1", "stage_w1", "pw1", "dw2", "stage_w2", "pw2_residual", "pool")
-BLOCK_SHAPES = ((160, 64, 128), (80, 128, 256), (40, 256, 512))
 
 
 def main(argv=None) -> int:
@@ -51,6 +51,8 @@ def main(argv=None) -> int:
     lib.tmat_down_block.argtypes = [vp] * 10 + [i] * 7 + [vp]
     lib.tmat_down_block_tile.restype = i
     lib.tmat_down_block_tile.argtypes = [i, i, i]
+    lib.tmat_down_block_last_launch.restype = i
+    lib.tmat_down_block_last_launch.argtypes = []
     lib.tmat_down_block_probe_read.restype = i
     lib.tmat_down_block_probe_read.argtypes = [vp]
     counters = (ctypes.c_ulonglong * 8)()
@@ -73,8 +75,7 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             if lib.tmat_down_block_probe_read(ctypes.addressof(counters)) != 0:
                 raise RuntimeError("reading the probe counters failed")
-            tile, staged = db.launch_config(c, f, torch.bfloat16)
-            form = db.launch_form(c, f, torch.bfloat16)
+            form, tile, staged = db.last_launch()
             names = PHASES if form == "wgmma" else PHASES_WMMA
             ctas = args.batch * (-(-(h // 2) // tile)) ** 2
             per_cta = [v / ctas for v in counters]

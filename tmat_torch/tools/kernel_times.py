@@ -14,18 +14,25 @@ of this one, so two commits can be timed in turns on one card:
 
     for t in PARENT . . PARENT; do python tmat_torch/tools/kernel_times.py --tree $t; done
 
+The shapes and the timer are ``timing.py``'s, beside this file; it is
+loaded by path because ``--tree`` puts another checkout's package first.
 Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
-import subprocess
 import sys
 from pathlib import Path
 
-BLOCK_SHAPES = ((160, 64, 128), (80, 128, 256), (40, 256, 512))
+
+def load_timing():
+    spec = importlib.util.spec_from_file_location("kernel_times_timing", Path(__file__).with_name("timing.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def main(argv=None) -> int:
@@ -46,34 +53,15 @@ def main(argv=None) -> int:
     device = torch.device("cuda")
     rng = np.random.RandomState(args.seed)
 
-    def ms(fn, reps: int) -> float:
-        fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    res = {"tree": str(Path(db.__file__).resolve().parents[2]),
-           "card": smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "not measured"}
+    timing = load_timing()
+    ms, BLOCK_SHAPES = timing.cuda_ms, timing.BLOCK_SHAPES
+    res = {"tree": str(Path(db.__file__).resolve().parents[2]), "card": timing.card_line()}
     for h, c, f in BLOCK_SHAPES:
         x, blk = db.random_block(rng, 200, h, c, f, torch.bfloat16, device)
         res[f"block_{h}_ms"] = ms(lambda: db.down_block(x, blk, h == BLOCK_SHAPES[0][0]), 10)
     res["down_path_ms"] = sum(res[f"block_{h}_ms"] for h, _, _ in BLOCK_SHAPES)
     for b in (1, 8):
-        pool = [torch.from_numpy(rng.randint(0, 256, (b, 8, 1024, 1024)).astype(np.uint8)).to(device)
-                for _ in range(8 // b)]
-        turn = [0]
-
-        def nxt():
-            turn[0] += 1
-            return pool[turn[0] % len(pool)]
-
+        nxt = timing.stack_pool(rng, b, device)
         zc = [8] * b
         res[f"focus_b{b}_host_counts_ms"] = ms(lambda: fs.focus_stack(nxt(), zc), 20)
         res[f"focus_b{b}_full_depth_ms"] = ms(lambda: fs.focus_stack(nxt()), 20)
