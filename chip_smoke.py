@@ -28,9 +28,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
    five methods) and the ``fs`` projections through
    ``compute_cell_area.analyze_images`` without and with well detection;
 9. plate_fs: ``run_plate(proj_method="fs", detect_well=True)`` on those
-   stacks with ragged depths, warmed once, timed once.
+   stacks with ragged depths, warmed once, timed once;
+10. branches: ``compute_branches.analyze_branches`` with the shipped
+   segmentor and the default branching config on the 2-D path (the ``max``
+   projections of a new synthetic plate, and the ``fs`` projections of the
+   focus plate with well detection) and on the 3-D Sato path (the focus
+   plate's stacks), each warmed once and run twice; the kernel path's
+   masks against the plain path's, the ``--no-vis`` statistics against
+   the Morse graph's, and one stack's vesselness on the card against the
+   CPU.
 
-The launch counts of phases 5, 8 and 9 go into the kernels line. The last
+The launch counts of phases 5, 8, 9 and 10 go into the kernels line. The last
 line is {"ok": true, "device": {...}}.
 """
 
@@ -450,6 +458,104 @@ def phase_plate_fs(seg, plate, device):
     return launches
 
 
+def phase_branches(seg, max_projs, fs_projs, stacks, device):
+    """The branches tool's core on both paths. Returns the down-block
+    launches of its two counted runs."""
+    from tmat_torch.core.profiling import StageTimer
+    from tmat_torch.ops import down_block as db
+    from tmat_torch.tools import compute_branches as cb
+
+    with open(Path(__file__).resolve().parent / "config" / "default_branching_computation.json") as f:
+        config = {**json.load(f), "image_width_microns": 1200.0}
+    images = [(p, False) for p in max_projs] + [(p, True) for p in fs_projs]
+    forwards = [0]
+    model_fn = seg._pred_fn
+
+    def counted(batch):
+        forwards[0] += 1
+        return model_fn(batch)
+
+    def run_2d(cfg, timer=None, rates=None):
+        out = []
+        for kind in (False, True):  # the max projections, then the fs ones with -w
+            t0 = time.perf_counter()
+            out += [cb.analyze_branches(img, seg, cfg, well, device, timer)
+                    for img, well in images if well == kind]
+            if rates is not None:
+                rates.append(sum(w == kind for _, w in images) / (time.perf_counter() - t0))
+        return out
+
+    def run_3d(cfg, timer=None):
+        return [cb.analyze_branches(stack, None, cfg, False, device, timer) for stack in stacks]
+
+    seg._pred_fn = counted
+    try:
+        t0 = time.perf_counter()
+        run_2d(config)
+        run_3d(config)
+        warm_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        forwards[0] = 0
+        db.launches = 0  # the branches path's run starts here
+        runs_2d, runs_3d, timers = [], [], []
+        for _ in range(2):
+            timer, rates = StageTimer(), []
+            runs_2d.append((run_2d(config, timer, rates), rates))
+            t0 = time.perf_counter()
+            runs_3d.append((run_3d(config, timer), len(stacks) / (time.perf_counter() - t0)))
+            timers.append(timer)
+        launches, n_forwards = db.launches, forwards[0]  # ... and ends here
+    finally:
+        seg._pred_fn = model_fn
+    print(timers[-1].report(), flush=True)
+    if launches != 3 * n_forwards or n_forwards != 2 * len(images):
+        raise AssertionError(f"{launches} kernel launches for {n_forwards} UNet forwards of "
+                             f"2 x {len(images)} images")
+    rows_2d = [[r.rows for r in run] for run, _ in runs_2d]
+    rows_3d = [[r.rows for r in run] for run, _ in runs_3d]
+    if rows_2d[0] != rows_2d[1] or rows_3d[0] != rows_3d[1]:
+        raise AssertionError(f"two runs of the branches tool differ:\n{rows_2d}\n{rows_3d}")
+    for rows in rows_2d[0] + rows_3d[0]:
+        (_, (n, total, _)), = rows
+        if not (n >= 1 and total > 0 and np.isfinite(total)):
+            raise AssertionError(f"no branch found: {rows}")
+    coverage = [float((r.rasters["well_mask.png"] > 0).mean()) for r in runs_2d[0][0][len(max_projs):]]
+    if not all(0.4 <= c < 1.0 for c in coverage):
+        raise AssertionError(f"a detected well covers under 40% of the frame (or none was found): {coverage}")
+
+    # the kernel's masks against the plain path's, on every image
+    seg._pred_fn = lambda batch: seg.model(batch, plain_down=True)
+    try:
+        plain = run_2d(config)
+    finally:
+        seg._pred_fn = model_fn
+    ious = []
+    for k, p in zip(runs_2d[0][0], plain):
+        mk, mp = k.rasters["prediction.png"] > 0.5, p.rasters["prediction.png"] > 0.5
+        ious.append(float((mk & mp).sum() / max((mk | mp).sum(), 1)))
+    if min(ious) < 0.99:
+        raise AssertionError(f"kernel vs plain branches masks: IoU {ious} under 0.99")
+    # the native Morse engine (--no-vis) gives the Morse graph's statistics
+    no_vis = {**config, "save_vis": False}
+    if [r.rows for r in run_2d(no_vis)] != rows_2d[0] or [r.rows for r in run_3d(no_vis)] != rows_3d[0]:
+        raise AssertionError("--no-vis statistics differ from the Morse graph's")
+    # one stack's vesselness on the card against the CPU, float32 on both sides
+    dsamp = (cb.DOWNSAMPLE_WIDTH, cb.DOWNSAMPLE_WIDTH)
+    card = cb._stack_vesselness(torch.from_numpy(stacks[0]).to(device), dsamp)[0].cpu()
+    host = cb._stack_vesselness(torch.from_numpy(stacks[0]), dsamp)[0]
+    vessels_err = (card - host).abs().max().item()
+    if not vessels_err <= 1e-4:
+        raise AssertionError(f"vesselness on the card differs from the CPU's by {vessels_err}")
+    emit("branches", images_2d=len(images), size_2d=list(max_projs[0].shape), stacks_3d=len(stacks),
+         size_3d=list(stacks[0].shape), wells_per_sec_2d_max=[r[0] for _, r in runs_2d],
+         wells_per_sec_2d_fs_w=[r[1] for _, r in runs_2d],
+         stacks_per_sec_3d=[s for _, s in runs_3d], warm_s=warm_s, unet_forwards=n_forwards,
+         launches=launches, mask_iou=ious, well_mask_coverage=coverage,
+         vessels_max_abs_err=vessels_err, stage_totals_s=timers[-1].totals,
+         stage_counts=timers[-1].counts, rows_2d=rows_2d[0], rows_3d=rows_3d[0])
+    return launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--wells", type=int, default=8)
@@ -485,6 +591,11 @@ def main(argv=None) -> int:
     fs_plate, sharp, rings = focus_plate(args.wells, rng)
     zproj_launches = phase_zproj(fs_plate, sharp, rings, device)
     fs_launches = phase_plate_fs(seg, fs_plate, device)
+    from tmat_torch.tools.compute_zproj import project
+
+    branch_launches = phase_branches(
+        seg, [well.max(axis=0) for well in synthetic_plate(args.wells, rng)],
+        [project(stack, "fs", device) for stack in fs_plate], fs_plate, device)
 
     one_stack = focus_timings[0]  # (1, 8, 1024, 1024): what both paths launch
     kernels = [{
@@ -492,8 +603,9 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "tmat_torch/csrc/down_block.cu",
         "replaces": "tmat_tpu/ops/pallas_unet.py:245",
-        "launches": launches + fs_launches["down_block"],
-        "launches_by_path": {"plate": launches, "plate_fs": fs_launches["down_block"]},
+        "launches": launches + fs_launches["down_block"] + branch_launches,
+        "launches_by_path": {"plate": launches, "plate_fs": fs_launches["down_block"],
+                             "branches": branch_launches},
         "max_abs_err": max(e["max_abs_err"] for e in errors),
         # one UNet forward of 200 patches: the three production blocks
         "ms": sum(t["ms"] for t in timings),

@@ -332,3 +332,65 @@ def test_projections_go_through_the_focus_kernel(cuda):
     out = zproj.proj_masked_batch(batch, [6, 2], "fs")
     assert torch.equal(out.cpu(), fs.focus_stack_plain(batch.cpu(), [6, 2]).float())
     assert fs.launches == before + 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,sigmas", [((7, 96, 96), None), ((2, 64, 80), (1, 3))])
+def test_sato_on_the_card_matches_the_cpu(cuda, shape, sigmas):
+    """Sato on the card against the same function on the CPU (float32, no
+    TF32): within 1e-5 of the largest response."""
+    from tmat_torch.ops.sato import DEFAULT_SIGMAS, sato
+
+    x = torch.from_numpy(np.random.RandomState(2).rand(*shape).astype(np.float32))
+    sig = sigmas or DEFAULT_SIGMAS
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        card = sato(x.to(cuda), sig).cpu()
+    host = sato(x, sig)
+    assert (card - host).abs().max().item() <= 1e-5 * host.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_region_expansion_on_the_card_matches_the_cpu(cuda):
+    from tmat_torch.tools.compute_branches import _region_expansion
+
+    rng = np.random.RandomState(3)
+    vessels = torch.from_numpy(rng.rand(200, 180).astype(np.float32))
+    seed = torch.from_numpy(rng.rand(200, 180) > 0.95)
+    card = _region_expansion(seed.to(cuda), vessels.to(cuda), iters=10).cpu()
+    assert torch.equal(card, _region_expansion(seed, vessels, iters=10))
+    assert card.sum() > seed.sum()
+
+
+@pytest.mark.gpu
+def test_analyze_branches_launches_the_down_block(cuda):
+    """The 2-D path runs each UNet forward through the kernel: three
+    launches per forward, one forward per image; the 3-D path launches none."""
+    from pathlib import Path
+
+    from tmat_torch.models.unet import get_unet_patch_segmentor_from_cfg
+    from tmat_torch.tools import compute_branches as cb
+
+    cfg = Path(__file__).resolve().parents[1] / "model_training" / "binary_segmentation" / "configs"
+    seg = get_unet_patch_segmentor_from_cfg(str(cfg / "unet_patch_segmentor_1.json"), device=cuda)
+    forwards = [0]
+    model_fn = seg._pred_fn
+
+    def counted(batch):
+        forwards[0] += 1
+        return model_fn(batch)
+
+    seg._pred_fn = counted
+    rng = np.random.RandomState(4)
+    img = (rng.rand(256, 256) * 20).astype(np.uint8)
+    img[120:124, 20:236] = 200
+    img[20:236, 60:63] = 180
+    config = {"image_width_microns": 1000.0, "save_vis": False}
+    before = db.launches
+    for _ in range(2):
+        res = cb.analyze_branches(img, seg, config, device=cuda)
+    assert forwards[0] == 2 and db.launches == before + 3 * forwards[0]
+    assert res.rows[0][0] == "" and len(res.rows[0][1]) == 3
+    stack = np.stack([img, img // 2, img])
+    before = db.launches
+    res3 = cb.analyze_branches(stack, None, config, device=cuda)
+    assert db.launches == before and res3.rows[0][1][0] >= 1

@@ -34,7 +34,8 @@ def test_filter_branch_seg_mask(seed, remove_isolated):
     skel = np.asarray(skeletonize(jnp.asarray(mask)))
     ref = jax_filter(mask.astype(np.uint8), footprint=None, remove_isolated=remove_isolated,
                      precomputed_skeleton=skel)
-    out = filter_branch_seg_mask(mask.astype(np.uint8), skel, remove_isolated)
+    out = filter_branch_seg_mask(mask.astype(np.uint8), footprint=None, remove_isolated=remove_isolated,
+                                 precomputed_skeleton=skel)
     assert out.dtype == ref.dtype == np.uint8
     assert 0 < out.sum() < mask.sum()
     np.testing.assert_array_equal(out, ref)

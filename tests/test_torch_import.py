@@ -35,7 +35,10 @@ def test_modules_import_without_forbidden_packages():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     assert {"tmat_torch.tools.plate_pipeline", "tmat_torch.ops.down_block", "tmat_torch.ops.focus_stack",
             "tmat_torch.tools.compute_zproj", "tmat_torch.tools.compute_cell_area",
-            "tmat_torch.ops.wellmask", "tmat_torch.core.nd2"} <= set(MODULES)
+            "tmat_torch.ops.wellmask", "tmat_torch.core.nd2", "tmat_torch.tools.compute_branches",
+            "tmat_torch.ops.sato", "tmat_torch.ops.blur", "tmat_torch.topo.morse",
+            "tmat_torch.topo.lightgraph", "tmat_torch.topo.regionprops",
+            "tmat_torch.core.config"} <= set(MODULES)
 
 
 def test_no_import_of_the_jax_package():
@@ -60,11 +63,12 @@ def no_cuda():
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "segmentor", "run_plate", "main", "zproj_main",
-                                   "zproj_project", "cell_area_main", "cell_area_analyze"])
+                                   "zproj_project", "cell_area_main", "cell_area_analyze",
+                                   "branches_main", "branches_analyze"])
 def test_entry_points_refuse_without_cuda(no_cuda, entry, tmp_path):
     from tmat_torch.device import resolve_device
     from tmat_torch.models.unet import UNetXceptionPatchSegmentor
-    from tmat_torch.tools import compute_cell_area, compute_zproj, plate_pipeline
+    from tmat_torch.tools import compute_branches, compute_cell_area, compute_zproj, plate_pipeline
 
     calls = {
         "resolve_device": lambda: resolve_device(None),
@@ -77,6 +81,9 @@ def test_entry_points_refuse_without_cuda(no_cuda, entry, tmp_path):
         "zproj_project": lambda: compute_zproj.project(np.zeros((2, 8, 8), np.uint8), "fs"),
         "cell_area_main": lambda: compute_cell_area.main(argv=[str(tmp_path), str(tmp_path / "out")]),
         "cell_area_analyze": lambda: compute_cell_area.analyze_images([np.zeros((8, 8), np.uint8)], 0.0),
+        "branches_main": lambda: compute_branches.main(argv=[str(tmp_path), str(tmp_path / "out")]),
+        "branches_analyze": lambda: compute_branches.analyze_branches(
+            np.zeros((2, 8, 8), np.uint8), None, {"image_width_microns": 1.0}),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

@@ -143,7 +143,7 @@ def test_stage1_matches_jax(setup, method):
         f = np.unpackbits(f_pk[j], axis=-1)[..., :w].astype(np.uint8)
         s = np.unpackbits(s_pk[j], axis=-1)[..., :w].astype(bool)
         assert 0 < f.sum() < f.size
-        np.testing.assert_array_equal(filter_branch_seg_mask(f, s),
+        np.testing.assert_array_equal(filter_branch_seg_mask(f, footprint=None, precomputed_skeleton=s),
                                       jax_filter(f, footprint=None, precomputed_skeleton=s))
 
 

@@ -1,12 +1,12 @@
 """Separable convolution filters: OpenCV's Gaussian and Laplacian kernels
 and skimage's Gaussian, over the trailing (H, W) axes.
 
-Counterpart of the part of ``tmat_tpu/ops/filters.py`` that focus stacking,
-Canny and the well mask use: ``cv2_gaussian_kernel``, ``cv2_deriv_kernel``,
-``gaussian_kernel_1d``, ``sepconv2d``, ``gaussian_blur_cv2``,
-``laplacian_cv2`` and ``gaussian``. Leading axes are batch. The Sobel,
-unsharp-mask, N-D and median filters of that file belong to the branches
-tool and are not here yet.
+Counterpart of ``tmat_tpu/ops/filters.py``: ``cv2_gaussian_kernel``,
+``cv2_deriv_kernel``, ``gaussian_kernel_1d``, ``sepconv2d``,
+``gaussian_blur_cv2``, ``laplacian_cv2``, ``gaussian``, the skimage Sobel
+pair, ``unsharp_mask``, ``conv1d_axis``, the N-D ``gaussian_nd`` and
+``unsharp_mask_nd`` (over every axis, Z included) and ``median3x3``.
+Leading axes of the 2-D filters are batch.
 """
 
 from __future__ import annotations
@@ -75,6 +75,18 @@ def _symmetric_index(start: int, stop: int, n: int) -> np.ndarray:
     return np.where(m < n, m, 2 * n - 1 - m)
 
 
+def _pad_index(before: int, after: int, n: int, mode: str) -> np.ndarray:
+    """Source index of each position of an axis of length ``n`` padded by
+    ``before`` and ``after`` under ``mode`` (not "constant")."""
+    if mode in ("reflect", "mirror"):
+        return reflect_index(-before, n + after, n)
+    if mode == "symmetric":
+        return _symmetric_index(-before, n + after, n)
+    if mode == "nearest":
+        return np.clip(np.arange(-before, n + after), 0, n - 1)
+    raise ValueError(f"unknown border mode {mode!r}")
+
+
 def pad_hw(x: torch.Tensor, top: int, bottom: int, left: int, right: int, mode: str) -> torch.Tensor:
     """``np.pad`` of the trailing (H, W) axes. ``mode``: "reflect" (cv2
     BORDER_REFLECT_101) or "mirror", "nearest" (edge), "symmetric" (cv2
@@ -82,17 +94,8 @@ def pad_hw(x: torch.Tensor, top: int, bottom: int, left: int, right: int, mode: 
     if mode == "constant":
         return F.pad(x, (left, right, top, bottom))
     h, w = x.shape[-2:]
-    if mode in ("reflect", "mirror"):
-        rows, cols = reflect_index(-top, h + bottom, h), reflect_index(-left, w + right, w)
-    elif mode == "symmetric":
-        rows, cols = _symmetric_index(-top, h + bottom, h), _symmetric_index(-left, w + right, w)
-    elif mode == "nearest":
-        rows = np.clip(np.arange(-top, h + bottom), 0, h - 1)
-        cols = np.clip(np.arange(-left, w + right), 0, w - 1)
-    else:
-        raise ValueError(f"unknown border mode {mode!r}")
-    rows = torch.as_tensor(rows, device=x.device)
-    cols = torch.as_tensor(cols, device=x.device)
+    rows = torch.as_tensor(_pad_index(top, bottom, h, mode), device=x.device)
+    cols = torch.as_tensor(_pad_index(left, right, w, mode), device=x.device)
     return x.index_select(-2, rows).index_select(-1, cols)
 
 
@@ -133,3 +136,69 @@ def gaussian(img: torch.Tensor, sigma: float, mode: str = "nearest", truncate: f
         return img
     k = gaussian_kernel_1d(sigma, truncate)
     return sepconv2d(img, k, k, mode=mode)
+
+
+# skimage Sobel kernels (smoothing [1,2,1]/4, derivative [1,0,-1]/2)
+_SOBEL_SMOOTH = np.array([0.25, 0.5, 0.25], np.float32)
+_SOBEL_DERIV = np.array([0.5, 0.0, -0.5], np.float32)
+
+
+def sobel_h(img: torch.Tensor) -> torch.Tensor:
+    """Horizontal-edge Sobel (derivative along rows), skimage convention."""
+    return sepconv2d(img, _SOBEL_DERIV, _SOBEL_SMOOTH, mode="reflect")
+
+
+def sobel_v(img: torch.Tensor) -> torch.Tensor:
+    """Vertical-edge Sobel (derivative along columns), skimage convention."""
+    return sepconv2d(img, _SOBEL_SMOOTH, _SOBEL_DERIV, mode="reflect")
+
+
+def unsharp_mask(img: torch.Tensor, radius: float = 1.0, amount: float = 1.0) -> torch.Tensor:
+    """skimage.filters.unsharp_mask of a [0, 1] float image over (H, W):
+    img + amount * (img - gaussian(img, radius)), clipped to [0, 1]."""
+    blurred = gaussian(img, radius, mode="nearest")
+    return torch.clamp(img + amount * (img - blurred), 0.0, 1.0)
+
+
+def conv1d_axis(img: torch.Tensor, kernel: Sequence[float], axis: int, mode: str = "nearest"
+                ) -> torch.Tensor:
+    """1-D correlation along ``axis``, the border padded by ``mode``."""
+    k = torch.as_tensor(np.asarray(kernel), dtype=img.dtype, device=img.device)
+    x = img.movedim(axis, -1)
+    shape = x.shape
+    r = (len(k) - 1) // 2
+    flat = x.reshape(-1, 1, shape[-1])
+    if mode == "constant":
+        flat = F.pad(flat, (r, len(k) - 1 - r))
+    else:
+        idx = torch.as_tensor(_pad_index(r, len(k) - 1 - r, shape[-1], mode), device=img.device)
+        flat = flat.index_select(-1, idx)
+    out = F.conv1d(flat, k.reshape(1, 1, -1))
+    return out.reshape(shape).movedim(-1, axis)
+
+
+def gaussian_nd(img: torch.Tensor, sigma: float, mode: str = "nearest", truncate: float = 4.0
+                ) -> torch.Tensor:
+    """N-D Gaussian blur over all axes (skimage.filters.gaussian of an N-D
+    array: a (Z, H, W) stack is blurred along Z too)."""
+    if sigma <= 0:
+        return img
+    k = gaussian_kernel_1d(sigma, truncate)
+    out = img
+    for axis in range(img.dim()):
+        out = conv1d_axis(out, k, axis, mode)
+    return out
+
+
+def unsharp_mask_nd(img: torch.Tensor, radius: float, amount: float) -> torch.Tensor:
+    """skimage.filters.unsharp_mask over all axes of a [0, 1] float array."""
+    blurred = gaussian_nd(img, radius, mode="nearest")
+    return torch.clamp(img + amount * (img - blurred), 0.0, 1.0)
+
+
+def median3x3(img: torch.Tensor) -> torch.Tensor:
+    """3x3 median over the trailing (H, W) axes, edge padding."""
+    h, w = img.shape[-2:]
+    padded = pad_hw(img, 1, 1, 1, 1, "nearest")
+    taps = [padded[..., dy : dy + h, dx : dx + w] for dy in range(3) for dx in range(3)]
+    return torch.stack(taps).median(dim=0).values

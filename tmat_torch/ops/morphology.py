@@ -1,9 +1,12 @@
 """Binary morphology (``tmat_tpu/ops/morphology.py``): footprint erosion,
-dilation, closing and opening over the trailing (H, W) axes, and Zhang-Suen
-thinning. Outside the image erosion sees True and dilation False, as
-skimage does."""
+dilation, closing and opening over the trailing (H, W) axes, Zhang-Suen
+thinning, the medial axis with its distance, the exact EDT and the
+filled-circle mask. Outside the image erosion sees True and dilation
+False, as skimage does."""
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -92,3 +95,34 @@ def skeletonize(masks: torch.Tensor) -> torch.Tensor:
         x = x2
         if not changed:
             return x > 0
+
+
+def medial_axis(mask: torch.Tensor, return_distance: bool = False):
+    """Centreline skeleton of a (..., H, W) mask: Zhang-Suen thinning, and
+    with ``return_distance`` the exact EDT of the mask (``ops/distance.py``)."""
+    from tmat_torch.ops.distance import edt_batch
+
+    h, w = mask.shape[-2:]
+    flat = mask.reshape(-1, h, w)
+    skel = skeletonize(flat).reshape(mask.shape)
+    if not return_distance:
+        return skel
+    return skel, edt_batch(flat).reshape(mask.shape)
+
+
+def euclidean_distance_transform(mask: np.ndarray) -> np.ndarray:
+    """Exact EDT of the foreground of a 2-D mask, float32 (numpy in and
+    out; scipy's ``distance_transform_edt`` in the JAX package)."""
+    from tmat_torch.ops.distance import edt_batch
+
+    m = torch.from_numpy(np.ascontiguousarray(np.asarray(mask) > 0))
+    return edt_batch(m[None])[0].numpy()
+
+
+def gen_circ_mask(center: Tuple[int, int], radius: float, shape: Tuple[int, int],
+                  mask_val: int = 1) -> np.ndarray:
+    """Filled-circle uint8 mask; ``center`` is (col, row) as in cv2.circle."""
+    rows, cols = np.mgrid[0 : shape[0], 0 : shape[1]]
+    cx, cy = center
+    inside = (cols - cx) ** 2 + (rows - cy) ** 2 <= radius**2
+    return (inside * mask_val).astype(np.uint8)

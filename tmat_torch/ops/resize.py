@@ -1,7 +1,8 @@
 """Resampling over the trailing (H, W) axes, as ``jax.image.resize`` does it.
 
 Counterpart of ``tmat_tpu/ops/resize.py::resize`` (``lanczos`` ->
-lanczos3, ``linear``, ``nearest``; antialiased). ``F.interpolate`` uses
+lanczos3, ``lanczos4`` -> jax's lanczos5 kernel, ``cubic`` -> Keys cubic,
+``linear``, ``nearest``; antialiased). ``F.interpolate`` uses
 other weights, so the weight matrices are rebuilt in numpy from
 ``jax._src.image.scale.compute_weight_mat``: pixel centres aligned, the
 kernel stretched by 1/scale when downsampling, each output's weights
@@ -21,20 +22,37 @@ import torch
 _F32_EPS = float(np.finfo(np.float32).eps)
 
 
-def _lanczos3(x: np.ndarray) -> np.ndarray:
-    radius = np.float32(3.0)
-    y = radius * np.sin(np.float32(np.pi) * x) * np.sin(np.float32(np.pi) * x / radius)
-    with np.errstate(divide="ignore", invalid="ignore"):
-        out = np.where(x > 1e-3, y / np.where(x != 0, np.float32(np.pi**2) * x**2, 1), 1)
-    return np.where(x > radius, 0, out).astype(np.float32)
+def _lanczos(radius: float):
+    """jax.image's Lanczos kernel of ``radius`` (3 or 5), in float32."""
+    radius = np.float32(radius)
+
+    def kernel(x: np.ndarray) -> np.ndarray:
+        y = radius * np.sin(np.float32(np.pi) * x) * np.sin(np.float32(np.pi) * x / radius)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            out = np.where(x > 1e-3, y / np.where(x != 0, np.float32(np.pi**2) * x**2, 1), 1)
+        return np.where(x > radius, 0, out).astype(np.float32)
+
+    return kernel
+
+
+_lanczos3 = _lanczos(3.0)
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """jax.image's Keys cubic kernel (a = -0.5), in float32."""
+    f = np.float32
+    out = ((f(1.5) * x - f(2.5)) * x) * x + f(1.0)
+    out = np.where(x >= 1.0, ((f(-0.5) * x + f(2.5)) * x - f(4.0)) * x + f(2.0), out)
+    return np.where(x >= 2.0, 0, out).astype(np.float32)
 
 
 def _triangle(x: np.ndarray) -> np.ndarray:
     return np.maximum(np.float32(0), np.float32(1) - np.abs(x))
 
 
-_KERNELS = {"lanczos": _lanczos3, "lanczos3": _lanczos3, "linear": _triangle,
-            "bilinear": _triangle}
+# "lanczos4" is jax's lanczos5 kernel, as in the JAX package (not cv2's a=4)
+_KERNELS = {"lanczos": _lanczos3, "lanczos3": _lanczos3, "lanczos4": _lanczos(5.0),
+            "cubic": _keys_cubic, "linear": _triangle, "bilinear": _triangle}
 
 
 @lru_cache(maxsize=64)

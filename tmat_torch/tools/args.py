@@ -1,6 +1,6 @@
 """Argument parsers and input/output directory checks of the port's tools.
 
-A copy of what the plate, zproj and cell-area tools use from
+A copy of what the plate, zproj, cell-area and branches tools use from
 ``tmat_tpu/tools/args.py``: the same flags per tool, files-XOR-dirs input
 validation, Z-stack vs 2-D input resolution, create-or-warn output
 verification and the config-file echo. The multi-process discovery check
@@ -178,6 +178,76 @@ def parse_cell_area_args(arg_defaults: Dict[str, Any], argv=None) -> argparse.Na
         help="Path to the cell-area configuration file.",
     )
     return parser.parse_args(argv)
+
+
+def parse_branching_args(arg_defaults: Dict[str, Any], argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(
+        description="Analyze microvessel branching in Z stacks or projections."
+    )
+    _add_common_io_args(parser)
+    parser.add_argument(
+        "-w", "--detect-well", action="store_true",
+        help="Auto detect the well boundary and exclude regions outside it.",
+    )
+    parser.add_argument(
+        "--image-width-microns", type=float, default=None,
+        help="Physical width in microns of the imaged region.",
+    )
+    parser.add_argument(
+        "--graph-thresh-1", nargs="+", type=float, default=None,
+        help="Morse-graph simplification threshold(s); multiple values sweep.",
+    )
+    parser.add_argument(
+        "--graph-thresh-2", nargs="+", type=float, default=None,
+        help="Branch connection threshold(s); multiple values sweep.",
+    )
+    parser.add_argument(
+        "--min-branch-length", type=float, default=None,
+        help="Minimum branch length (microns) to keep.",
+    )
+    parser.add_argument(
+        "--max-branch-length", type=float, default=None,
+        help="Maximum branch length (microns) to keep.",
+    )
+    parser.add_argument(
+        "--remove-isolated-branches", action="store_true",
+        help="Remove branches not connected to any other branch.",
+    )
+    parser.add_argument(
+        "--graph-smoothing-window", type=float, default=None,
+        help="Window size (microns) for smoothing branch paths.",
+    )
+    parser.add_argument(
+        "--model-cfg-path", type=str, default=None,
+        help="Path to a UNet patch segmentor config JSON.",
+    )
+    parser.add_argument(
+        "--no-vis", action="store_true",
+        help=(
+            "Skip saving visualization PNGs (original/prediction/barcode/"
+            "Morse tree) and route branch statistics through the native "
+            "C++ Morse engine. Faster for large batches; CSV outputs are "
+            "identical."
+        ),
+    )
+    parser.add_argument(
+        "--tta", type=int, choices=(1, 4, 8), default=None,
+        help=(
+            "Dihedral test-time-augmentation variants for the tiled UNet "
+            "on the 2-D path (default: the model config's 'tta' key, else "
+            "8). Ignored on the 3-D Sato path."
+        ),
+    )
+    parser.add_argument(
+        "-c", "--config", type=str, default=arg_defaults["default_config_path"],
+        help="Path to the branching configuration file.",
+    )
+    args = parser.parse_args(argv)
+    if not args.remove_isolated_branches:
+        # None: the config file's value stands (store_true's False would
+        # otherwise override a config-file true)
+        args.remove_isolated_branches = None
+    return args
 
 
 def verify_config_file(config_path: str) -> Dict[str, Any]:

@@ -226,7 +226,8 @@ def run_plate_streaming(
                 f_np = np.unpackbits(f_pk, axis=-1)[..., :w].astype(bool)
                 s_np = np.unpackbits(s_pk, axis=-1)[..., :w].astype(bool)
                 masks = np.stack([
-                    filter_branch_seg_mask(f_np[j].astype(np.uint8), s_np[j]) > 0
+                    filter_branch_seg_mask(f_np[j].astype(np.uint8), footprint=None,
+                                           precomputed_skeleton=s_np[j]) > 0
                     for j in range(f_np.shape[0])
                 ])
                 masks_pk = np.packbits(masks, axis=-1)
