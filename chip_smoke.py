@@ -36,17 +36,34 @@ Phases, each printing one JSON line; any failure exits non-zero:
    plate's stacks), each warmed once and run twice; the kernel path's
    masks against the plain path's, the ``--no-vis`` statistics against
    the Morse graph's, and one stack's vesselness on the card against the
-   CPU.
+   CPU;
+11. inv_depth: the shipped invasion ensemble (3 of 5 members ranked by
+   history, 256^2 input, bf16) through ``compute_inv_depth.predict_rows`` on
+   eight uint8 8 x 1024^2 stacks, warmed once and run twice (stacks/sec,
+   then a stage split with the card synchronised at each stage's end), the
+   seed-5 quality slices (not invaded, invaded), bf16 against f32 on the
+   card, the card's f32 against the CPU's, the prep tail on the card
+   against the CPU, and the ensemble forward timed with CUDA events beside
+   its bound on this card;
+12. cli: ``tmat_torch.cli.main(["compute_inv_depth", IN, OUT])`` on two of
+   those stacks written as ND2 files; its CSV rows against
+   ``predict_stack``'s; ``-h`` and an unknown subcommand.
 
-The launch counts of phases 5, 8, 9 and 10 go into the kernels line. The last
-line is {"ok": true, "device": {...}}.
+Phase 4 also holds the bf16 kernel path's mask against an f32 forward of
+the plain path. The launch counts of phases 5, 8, 9 and 10 go into the
+kernels line; phases 11 and 12 launch neither kernel. The last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import csv
 import json
+import os
+import struct
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -77,6 +94,8 @@ FOCUS_CASES = [
     ("float32", (1, 3, 2, 3), None, 1),
 ]
 PLATE_FS_Z_COUNTS = (8, 8, 6, 8, 5, 8, 8, 7)
+INV_STACKS = 8  # uint8 (8, 1024, 1024) stacks of the inv_depth phase
+INV_TOL = 0.02  # bf16 against f32 probabilities, and the margin around cls_thresh
 
 
 def emit(phase: str, **fields) -> None:
@@ -176,6 +195,9 @@ def synthetic_plate(n_wells: int, rng, size: int = 1024, n_z: int = 8) -> np.nda
 
 
 def phase_unet(seg, well: np.ndarray, device):
+    from tmat_torch.core import defs
+    from tmat_torch.models.params_io import from_flax_variables, load_variables
+    from tmat_torch.models.unet import UNetXception
     from tmat_torch.ops import down_block as db
     from tmat_torch.ops.rescale import rescale_intensity
     from tmat_torch.ops.resize import resize
@@ -201,8 +223,24 @@ def phase_unet(seg, well: np.ndarray, device):
         raise AssertionError(f"kernel vs plain UNet mask IoU {iou} < 0.99 (or an empty mask)")
     kernel_ms = cuda_ms(lambda: seg.model(batch), 3)
     plain_ms = cuda_ms(lambda: seg.model(batch, plain_down=True), 3)
+    # the bf16 kernel path against a float32 forward of the plain path (TF32 off)
+    with open(Path(__file__).resolve().parent / SHIPPED_CFG) as f:
+        cfg = json.load(f)
+    ckpt = defs.model_training_path(f"binary_segmentation/checkpoints/{cfg['checkpoint_file']}")
+    net32 = UNetXception(from_flax_variables(load_variables(ckpt), tuple(cfg["filter_counts"])),
+                         torch.float32).to(device).eval()
+    with torch.no_grad():
+        pred32 = net32(batch, plain_down=True)
+    m32 = pred32 > 0.5
+    iou32 = (mk & m32).sum().item() / max((mk | m32).sum().item(), 1)
+    diff32 = (pred.float() - pred32).abs().max().item()
+    del net32, pred32
+    torch.cuda.empty_cache()
+    if not (iou32 >= 0.99 and m32.sum().item() > 1000):
+        raise AssertionError(f"bf16 kernel path vs f32 UNet mask IoU {iou32} < 0.99 (or an empty mask)")
     emit("unet", batch=list(batch.shape), dtype=str(seg.dtype), launches=launched, mask_iou=iou,
          max_abs_diff=(pred - plain).abs().max().item(), foreground=mp.float().mean().item(),
+         mask_iou_bf16_vs_f32=iou32, max_abs_diff_bf16_vs_f32=diff32,
          forward_ms=kernel_ms, plain_forward_ms=plain_ms)
 
 
@@ -556,6 +594,250 @@ def phase_branches(seg, max_projs, fs_projs, stacks, device):
     return launches
 
 
+def invasion_stacks(n_stacks: int, n_z: int = 8, size: int = 1024, seed: int = 0) -> np.ndarray:
+    """uint8 (n_stacks, n_z, size, size) invasion stacks: ``n_z`` distinct
+    ``synth_invasion_image`` slices (not invaded, invaded, in turn), made in
+    threads; stack i holds them rolled by i along Z and shifted by (37 i,
+    53 i) pixels, so that no two stacks are equal."""
+    from tmat_torch.models.synthetic import synth_invasion_image
+
+    def one(z):
+        return synth_invasion_image(np.random.RandomState(seed + z), size, invaded=bool(z % 2))
+
+    with ThreadPoolExecutor(n_z) as pool:
+        slices = np.stack(list(pool.map(one, range(n_z))))
+    return np.stack([np.roll(np.roll(slices, i, axis=0), (37 * i, 53 * i), axis=(1, 2))
+                     for i in range(n_stacks)])
+
+
+def ensemble_work(members, x: torch.Tensor) -> dict:
+    """What one ensemble forward must do and move, and the least time the
+    card could take for it: the convolutions' and the head's multiply-adds
+    (two operations each), counted from the shapes of one forward, in bf16
+    on the tensor cores; bytes: the input read once, each member's weights
+    read once, the probabilities written once. Bias, relu, pool and the
+    residual adds are left out of the operations."""
+    from torch import nn
+
+    per_member = [0]
+
+    def count(mod, inputs, out):
+        if isinstance(mod, nn.Conv2d):
+            taps = mod.kernel_size[0] * mod.kernel_size[1] * mod.in_channels // mod.groups
+            per_member[0] += 2 * out.numel() * taps
+        else:
+            per_member[0] += 2 * out.numel() * mod.in_features
+
+    hooks = [m.register_forward_hook(count) for m in members[0].modules()
+             if isinstance(m, (nn.Conv2d, nn.Linear))]
+    try:
+        with torch.no_grad():
+            out = members[0](x)
+    finally:
+        for h in hooks:
+            h.remove()
+    flops = per_member[0] * len(members)
+    weights = sum(p.numel() * p.element_size() for m in members for p in m.parameters())
+    nbytes = x.numel() * x.element_size() + weights + len(members) * out.numel() * 4
+    ops_ms, bytes_ms = flops / PEAK_BF16_TC * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"flops": flops, "flops_per_slice_per_member": per_member[0] / x.shape[0], "bytes": nbytes,
+            "ops_ms": ops_ms, "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def phase_inv_depth(device):
+    """The invasion-depth tool's core on the shipped ensemble. Returns what
+    the cli phase holds the CLI against."""
+    from tmat_torch.core.profiling import StageTimer
+    from tmat_torch.models.preprocess import host_resize, prep_tail
+    from tmat_torch.models.resnet import ensemble_forward
+    from tmat_torch.models.synthetic import synth_invasion_image
+    from tmat_torch.ops import down_block as db, focus_stack as fs
+    from tmat_torch.tools import compute_inv_depth as inv
+
+    root = Path(__file__).resolve().parent
+    with open(root / "model_training" / "invasion_depth_best_hp.json") as f:
+        last_layer = json.load(f)["last_resnet_layer"]
+    with open(root / "model_training" / "invasion_depth_training_values.json") as f:
+        values = json.load(f)
+    with open(root / "config" / inv.DEFAULT_CONFIG_NAME) as f:
+        n_pred = json.load(f)["n_pred_models"]
+    shape, thresh = tuple(values["resnet_inp_shape"]), values["cls_thresh"]
+    hw = shape[:2]
+    ens_dir = root / "model_training" / "best_ensemble"
+    ranked = inv._rank_models_by_history(ens_dir, values["n_models"])[:n_pred]
+    ckpts = [ens_dir / f"best_finetune_weights_{i}.msgpack" for i in ranked]
+    t0 = time.perf_counter()
+    ens = inv.load_ensemble(ckpts, shape, last_layer, device=device)
+    load_s = time.perf_counter() - t0
+    if len(ens) != 3 or ens[0].dtype != torch.bfloat16 or hw != (256, 256):
+        raise AssertionError(f"unexpected ensemble: {len(ens)} members, {ens[0].dtype}, input {hw}")
+    ens32 = inv.load_ensemble(ckpts, shape, last_layer, torch.float32, device)
+    ens_cpu = inv.load_ensemble(ckpts, shape, last_layer, torch.float32, "cpu")
+
+    # quality: the seed-5 slices of the tool's test, not invaded then invaded
+    q_rng = np.random.RandomState(5)
+    quality = np.stack([synth_invasion_image(q_rng, 256, invaded=False),
+                        synth_invasion_image(q_rng, 256, invaded=True)])
+    q_rows = inv.stack_rows("q", inv.predict_stack(quality, ens, hw), thresh)
+    if [r[inv.PRED_COL] for r in q_rows] != [0, 1]:
+        raise AssertionError(f"the seed-5 slices are not predicted [0, 1]: {q_rows}")
+
+    t0 = time.perf_counter()
+    stacks = invasion_stacks(INV_STACKS)
+    synth_s = time.perf_counter() - t0
+    items = [(f"S{i}", s) for i, s in enumerate(stacks)]
+    launches_before = (db.launches, fs.launches)
+    t0 = time.perf_counter()
+    inv.predict_rows(items, ens, hw, thresh)
+    warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        rows = inv.predict_rows(items, ens, hw, thresh)
+        runs.append((rows, time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated()
+    timer = StageTimer()
+    timed_rows = inv.predict_rows(items, ens, hw, thresh, timer)
+    if runs[0][0] != runs[1][0] or timed_rows != runs[0][0]:
+        raise AssertionError("two runs of the inv_depth core differ")
+    n_slices = sum(len(s) for s in stacks)
+    if len(runs[0][0]) != n_slices:
+        raise AssertionError(f"{len(runs[0][0])} rows for {n_slices} slices")
+
+    # bf16 against f32 on the card on the tool's probabilities (the members'
+    # mean; each member's is reported beside it); the card's f32 against the CPU's
+    p16 = np.stack([inv.predict_stack(s, ens, hw) for s in stacks])
+    p32 = np.stack([inv.predict_stack(s, ens32, hw) for s in stacks])
+    m16, m32 = p16.mean(axis=1), p32.mean(axis=1)
+    bf16_err, member_err = float(np.abs(m16 - m32).max()), float(np.abs(p16 - p32).max())
+    far = np.abs(m32 - thresh) > INV_TOL
+    if not bf16_err <= INV_TOL or not np.array_equal((m16 > thresh)[far], (m32 > thresh)[far]):
+        raise AssertionError(f"bf16 vs f32 probabilities: max {bf16_err} (tol {INV_TOL}; members "
+                             f"{member_err}), or a prediction away from the threshold differs")
+    p_cpu = np.stack([inv.predict_stack(s, ens_cpu, hw) for s in stacks[:2]])
+    cpu_err = float(np.abs(p32[:2] - p_cpu).max())
+    if not cpu_err <= 1e-4:
+        raise AssertionError(f"the card's f32 differs from the CPU's by {cpu_err}")
+    resized = host_resize(stacks[0], hw)
+    tail_err = (prep_tail(torch.from_numpy(resized).to(device)).cpu()
+                - prep_tail(torch.from_numpy(resized))).abs().max().item()
+    if not tail_err <= 1e-4:
+        raise AssertionError(f"the prep tail on the card differs from the CPU's by {tail_err}")
+
+    x = prep_tail(torch.from_numpy(resized).to(device))
+    forward_ms = cuda_ms(lambda: ensemble_forward(ens, x), 20)
+    work = ensemble_work(ens, x)
+    if (db.launches, fs.launches) != launches_before:
+        raise AssertionError("the inv_depth path launched a kernel of the plate path")
+    wall = [t for _, t in runs]
+    probs = [r[inv.PROB_COL] for r in runs[0][0]]
+    emit("inv_depth", stacks=len(stacks), size=list(stacks.shape[1:]), members=len(ens),
+         member_checkpoints=[c.name for c in ckpts], input=list(shape), dtype=str(ens[0].dtype),
+         load_s=load_s, synth_s=synth_s, warm_s=warm_s,
+         stacks_per_sec=[len(stacks) / t for t in wall], slices_per_sec=[n_slices / t for t in wall],
+         stage_ms={k: timer.totals[k] / timer.counts[k] * 1e3 for k in timer.totals},
+         forward_ms_per_stack=forward_ms, **{f"forward_{k}": v for k, v in work.items()},
+         max_memory_allocated=peak, quality_rows=q_rows, bf16_vs_f32_max_abs=bf16_err,
+         bf16_vs_f32_member_max_abs=member_err, predictions_near_threshold=int((~far).sum()),
+         card_f32_vs_cpu_max_abs=cpu_err, prep_tail_card_vs_cpu_max_abs=tail_err,
+         invaded_share=float(np.mean([r[inv.PRED_COL] for r in runs[0][0]])),
+         prob_range=[min(probs), max(probs)])
+    return stacks, ens, hw, thresh
+
+
+def _nd2_chunk(name: bytes, payload: bytes) -> bytes:
+    from tmat_torch.core.nd2 import CHUNK_MAGIC
+
+    return struct.pack("<IIQ", CHUNK_MAGIC, len(name), len(payload)) + name + payload
+
+
+def _lv_item(name: str, value) -> bytes:
+    raw_name = (name + "\x00").encode("utf-16-le")
+    head = lambda t: struct.pack("<BB", t, len(name) + 1) + raw_name  # noqa: E731
+    if isinstance(value, int):
+        return head(3) + struct.pack("<I", value)
+    if isinstance(value, float):
+        return head(6) + struct.pack("<d", value)
+    if isinstance(value, str):
+        return head(8) + value.encode("utf-16-le") + b"\x00\x00"
+    payload = b"".join(_lv_item(k, v) for k, v in value.items())  # a dict
+    return head(11) + struct.pack("<IQ", len(value), len(payload)) + payload
+
+
+def write_nd2(path, stack: np.ndarray) -> None:
+    """A (Z, Y, X) uint8/uint16 stack as an ND2 v3 file: the chunk layout
+    ``tmat_torch/core/nd2.py`` reads (signature, image attributes,
+    metadata, one data chunk per slice, the chunk map)."""
+    from tmat_torch.core.nd2 import FILE_SIGNATURE_NAME, FILEMAP_SIGNATURE
+
+    n_z, height, width = stack.shape
+    attrs = {"SLxImageAttributes": {"uiWidth": width, "uiHeight": height, "uiComp": 1,
+                                    "uiBpcInMemory": stack.dtype.itemsize * 8, "uiSequenceCount": n_z}}
+    meta = {"SLxPictureMetadata": {"dCalibration": 0.65, "dZStep": 2.0, "sDescription": "synthetic"}}
+    chunks = [(FILE_SIGNATURE_NAME, b"Ver3.0\x00"),
+              (b"ImageAttributesLV!", b"".join(_lv_item(k, v) for k, v in attrs.items())),
+              (b"ImageMetadataSeqLV|0!", b"".join(_lv_item(k, v) for k, v in meta.items()))]
+    chunks += [(b"ImageDataSeq|%d!" % z, struct.pack("<d", 0.1 * z) + np.ascontiguousarray(stack[z]).tobytes())
+               for z in range(n_z)]
+    buf, offsets = bytearray(), {}
+    for name, payload in chunks:
+        offsets[name] = len(buf)
+        buf += _nd2_chunk(name, payload)
+    chunk_map = bytearray()
+    for name, payload in chunks[1:]:  # the signature chunk is not mapped
+        chunk_map += name + struct.pack("<QQ", offsets[name], len(payload))
+    map_offset = len(buf)
+    buf += _nd2_chunk(FILEMAP_SIGNATURE, bytes(chunk_map + FILEMAP_SIGNATURE))
+    buf += FILEMAP_SIGNATURE + struct.pack("<Q", map_offset)
+    with open(path, "wb") as fp:
+        fp.write(bytes(buf))
+
+
+def phase_cli(stacks, ens, hw, thresh, device):
+    """``tmat-torch compute_inv_depth IN OUT`` on the card, against the core."""
+    from tmat_torch import cli
+    from tmat_torch.core import defs, io as tio
+    from tmat_torch.tools import compute_inv_depth as inv
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        in_dir, out_dir, base = tmp / "in", tmp / "out", tmp / "base"
+        in_dir.mkdir()
+        for i in range(2):
+            write_nd2(in_dir / f"S{i}.nd2", stacks[i])
+            if not np.array_equal(tio.load_image(in_dir / f"S{i}.nd2")[0], stacks[i]):
+                raise AssertionError("an ND2 stack does not read back as written")
+        # a base dir of its own: the CLI configures it for this session only
+        saved = (os.environ.get("TMAT_TPU_BASE_DIR"), defs.BASE_DIR, defs.SCRIPT_CONFIG_DIR,
+                 defs.MODEL_TRAINING_DIR)
+        os.environ["TMAT_TPU_BASE_DIR"] = str(base)
+        defs.BASE_DIR, defs.SCRIPT_CONFIG_DIR, defs.MODEL_TRAINING_DIR = (
+            base, base / "config", base / "model_training")
+        try:
+            t0 = time.perf_counter()
+            code = cli.main(["compute_inv_depth", str(in_dir), str(out_dir)])
+            cli_s = time.perf_counter() - t0
+            help_code, unknown_code = cli.main(["-h"]), cli.main(["frobnicate"])
+        finally:
+            if saved[0] is None:
+                os.environ.pop("TMAT_TPU_BASE_DIR", None)
+            else:
+                os.environ["TMAT_TPU_BASE_DIR"] = saved[0]
+            defs.BASE_DIR, defs.SCRIPT_CONFIG_DIR, defs.MODEL_TRAINING_DIR = saved[1:]
+        if (code, help_code, unknown_code) != (0, 0, 1):
+            raise AssertionError(f"cli exit codes {code}, {help_code}, {unknown_code}; expected 0, 0, 1")
+        with open(out_dir / "invasion_depth_predictions.csv") as f:
+            rows = list(csv.DictReader(f))
+    expected = [{k: str(v) for k, v in r.items()}
+                for i in range(2) for r in inv.stack_rows(f"S{i}", inv.predict_stack(stacks[i], ens, hw), thresh)]
+    if rows != expected:
+        raise AssertionError(f"the CLI's rows differ from predict_stack's:\n{rows}\n{expected}")
+    emit("cli", stacks=2, format="nd2", rows=len(rows), seconds=cli_s, exit_codes=[code, help_code, unknown_code])
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--wells", type=int, default=8)
@@ -596,6 +878,11 @@ def main(argv=None) -> int:
     branch_launches = phase_branches(
         seg, [well.max(axis=0) for well in synthetic_plate(args.wells, rng)],
         [project(stack, "fs", device) for stack in fs_plate], fs_plate, device)
+
+    inv_stacks, ens, hw, thresh = phase_inv_depth(device)
+    phase_cli(inv_stacks, ens, hw, thresh, device)
+    del ens
+    torch.cuda.empty_cache()
 
     one_stack = focus_timings[0]  # (1, 8, 1024, 1024): what both paths launch
     kernels = [{

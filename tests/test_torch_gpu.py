@@ -394,3 +394,51 @@ def test_analyze_branches_launches_the_down_block(cuda):
     before = db.launches
     res3 = cb.analyze_branches(stack, None, config, device=cuda)
     assert db.launches == before and res3.rows[0][1][0] >= 1
+
+
+def _shipped_member(dtype, device, last_layer="conv4_block6_out", size=256):
+    from pathlib import Path
+
+    from tmat_torch.tools import compute_inv_depth as inv
+
+    ens = Path(__file__).resolve().parents[1] / "model_training" / "best_ensemble"
+    return inv.load_ensemble([ens / "best_finetune_weights_0.msgpack"], (size, size, 3), last_layer,
+                             dtype, device)
+
+
+@pytest.mark.gpu
+def test_resnet_on_the_card_matches_the_cpu(cuda):
+    """The shipped member in float32 (TF32 off) on the card against the CPU,
+    probabilities within 1e-4; bf16 within 0.02 of the card's float32."""
+    from tmat_torch.models.preprocess import prep_inv_depth_imgs_hybrid
+    from tmat_torch.models.resnet import ensemble_forward
+    from tmat_torch.models.synthetic import synth_invasion_image
+
+    rng = np.random.RandomState(5)
+    stack = np.stack([synth_invasion_image(rng, 512, invaded=bool(z % 2)) for z in range(4)])
+    x_cpu = prep_inv_depth_imgs_hybrid(stack, (256, 256), "cpu")
+    x_card = prep_inv_depth_imgs_hybrid(stack, (256, 256), cuda)
+    assert (x_card.cpu() - x_cpu).abs().max().item() <= 1e-4
+    host = ensemble_forward(_shipped_member(torch.float32, "cpu"), x_cpu)
+    card32 = ensemble_forward(_shipped_member(torch.float32, cuda), x_card)
+    card16 = ensemble_forward(_shipped_member(torch.bfloat16, cuda), x_card)
+    assert card16.shape == (1, 4, 1) and card16.dtype == torch.float32
+    assert (card32.cpu() - host).abs().max().item() <= 1e-4
+    assert (card16 - card32).abs().max().item() <= 0.02
+
+
+@pytest.mark.gpu
+def test_predict_stack_on_the_card(cuda):
+    """predict_stack on the card gives the member probabilities of the
+    CPU's, for uint8 and uint16 stacks and a single 2-D image."""
+    from tmat_torch.tools import compute_inv_depth as inv
+
+    rng = np.random.RandomState(6)
+    card = _shipped_member(torch.float32, cuda, size=64)
+    host = _shipped_member(torch.float32, "cpu", size=64)
+    for stack in ((rng.rand(3, 100, 90) * 255).astype(np.uint8),
+                  (rng.rand(2, 70, 70) * 4095).astype(np.uint16),
+                  (rng.rand(80, 80) * 255).astype(np.uint8)):
+        out = inv.predict_stack(stack, card, (64, 64))
+        assert out.dtype == np.float32 and out.shape == (1, 1 if stack.ndim == 2 else len(stack), 1)
+        np.testing.assert_allclose(out, inv.predict_stack(stack, host, (64, 64)), atol=1e-4, rtol=0)

@@ -38,7 +38,25 @@ def test_modules_import_without_forbidden_packages():
             "tmat_torch.ops.wellmask", "tmat_torch.core.nd2", "tmat_torch.tools.compute_branches",
             "tmat_torch.ops.sato", "tmat_torch.ops.blur", "tmat_torch.topo.morse",
             "tmat_torch.topo.lightgraph", "tmat_torch.topo.regionprops",
-            "tmat_torch.core.config"} <= set(MODULES)
+            "tmat_torch.core.config", "tmat_torch.models.resnet", "tmat_torch.models.preprocess",
+            "tmat_torch.models.synthetic", "tmat_torch.tools.compute_inv_depth", "tmat_torch.cli",
+            "tmat_torch.configure", "tmat_torch.gui"} <= set(MODULES)
+
+
+def test_front_doors_import_no_jax_triton_or_tk():
+    """The CLI, the GUI (Tk only inside ``main``) and the inv_depth tool."""
+    front = ["tmat_torch.cli", "tmat_torch.gui", "tmat_torch.tools.compute_inv_depth"]
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {front!r}: importlib.import_module(m)\n"
+        "import tmat_torch.cli as c; c._tool_modules()\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'tmat_tpu', 'triton', 'tkinter', '_tkinter'))))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=PKG.parent, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_no_import_of_the_jax_package():
@@ -53,6 +71,8 @@ def test_no_import_of_the_jax_package():
                 top = name.split(".")[0]
                 # PIL only inside the image loaders, never at module level
                 allowed = top == "PIL" and path.name == "io.py" and node.col_offset > 0
+                # Tk only inside the GUI's functions
+                assert top != "tkinter" or (path.name == "gui.py" and node.col_offset > 0), path
                 assert top not in FORBIDDEN or allowed, f"{path}: imports {name}"
 
 
@@ -64,11 +84,16 @@ def no_cuda():
 
 @pytest.mark.parametrize("entry", ["resolve_device", "segmentor", "run_plate", "main", "zproj_main",
                                    "zproj_project", "cell_area_main", "cell_area_analyze",
-                                   "branches_main", "branches_analyze"])
+                                   "branches_main", "branches_analyze", "inv_depth_main",
+                                   "inv_depth_ensemble", "inv_depth_prep", "resnet", "cli", "gui"])
 def test_entry_points_refuse_without_cuda(no_cuda, entry, tmp_path):
     from tmat_torch.device import resolve_device
     from tmat_torch.models.unet import UNetXceptionPatchSegmentor
-    from tmat_torch.tools import compute_branches, compute_cell_area, compute_zproj, plate_pipeline
+    from tmat_torch import cli, gui
+    from tmat_torch.models.preprocess import prep_inv_depth_imgs_hybrid
+    from tmat_torch.models.resnet import build_resnet50_tl
+    from tmat_torch.tools import (compute_branches, compute_cell_area, compute_inv_depth, compute_zproj,
+                                  plate_pipeline)
 
     calls = {
         "resolve_device": lambda: resolve_device(None),
@@ -84,6 +109,13 @@ def test_entry_points_refuse_without_cuda(no_cuda, entry, tmp_path):
         "branches_main": lambda: compute_branches.main(argv=[str(tmp_path), str(tmp_path / "out")]),
         "branches_analyze": lambda: compute_branches.analyze_branches(
             np.zeros((2, 8, 8), np.uint8), None, {"image_width_microns": 1.0}),
+        "inv_depth_main": lambda: compute_inv_depth.main(argv=[str(tmp_path), str(tmp_path / "out")]),
+        "inv_depth_ensemble": lambda: compute_inv_depth.load_ensemble([], (32, 32, 3), "conv4_block6_out"),
+        "inv_depth_prep": lambda: prep_inv_depth_imgs_hybrid(np.zeros((2, 8, 8), np.uint8), (4, 4)),
+        "resnet": lambda: build_resnet50_tl(1, (32, 32, 3)),
+        "cli": lambda: cli.main(["compute_inv_depth", str(tmp_path), str(tmp_path / "out")]),
+        "gui": lambda: gui.run_tool(gui.TABS[3], gui.build_namespace(
+            gui.TABS[3], {"in_root": str(tmp_path), "out_root": str(tmp_path / "out")})),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

@@ -10,8 +10,9 @@ small pure-Python decoder for exactly that subset, so the port needs no
 float32.
 
 ``from_flax_variables`` turns such a tree of numpy arrays into the port's
-BN-folded UNet weights. It is the one function that carries weights
-across packages; the tests use it to give both the same model.
+BN-folded UNet weights, ``from_flax_resnet_variables`` into the
+invasion classifier's. They are the functions that carry weights across
+packages; the tests use them to give both the same model.
 """
 
 from __future__ import annotations
@@ -210,4 +211,41 @@ def from_flax_variables(
     out["up"] = ups
     hk, hb = conv(f"Conv_{1 + n_down + n_up}")
     out["head"] = {"k": hk, "b": hb}
+    return out
+
+
+RESNET_BN_EPS = 1.001e-5
+
+
+def from_flax_resnet_variables(variables: Dict[str, Any],
+                               eps: float = RESNET_BN_EPS) -> Dict[str, np.ndarray]:
+    """The ``state_dict`` of ``tmat_torch.models.resnet.ResNet50TL`` (as
+    float32 numpy arrays) from the Flax ``ResNet50TL`` variable tree: each
+    ``{name}_conv`` with its ``{name}_bn`` folded in float64 into one
+    convolution, HWIO kernels to OIHW; the dense head ``(C, n)`` to a
+    Linear ``(n, C)``. The blocks present in the tree are the ones kept."""
+    p = variables["params"]["base_model"]
+    bs = variables["batch_stats"]["base_model"]
+
+    def f32(a):
+        return np.asarray(a, np.float32)
+
+    def folded(tree_p, tree_bs, conv, bn):
+        k, b = _fold_bn(f32(tree_p[conv]["kernel"]), f32(tree_p[conv]["bias"]),
+                        f32(tree_p[bn]["scale"]), f32(tree_p[bn]["bias"]),
+                        f32(tree_bs[bn]["mean"]), f32(tree_bs[bn]["var"]), eps)
+        return np.ascontiguousarray(k.transpose(3, 2, 0, 1)), b
+
+    out: Dict[str, np.ndarray] = {}
+    out["base.conv1.weight"], out["base.conv1.bias"] = folded(p, bs, "conv1_conv", "conv1_bn")
+    for name in sorted(k for k in p if "_block" in k):
+        for i in range(4):
+            if f"{i}_conv" not in p[name]:
+                continue  # an identity shortcut has no 0_conv
+            w, b = folded(p[name], bs[name], f"{i}_conv", f"{i}_bn")
+            out[f"base.blocks.{name}.conv{i}.weight"] = w
+            out[f"base.blocks.{name}.conv{i}.bias"] = b
+    head = variables["params"]["head"]
+    out["head.weight"] = np.ascontiguousarray(f32(head["kernel"]).T)
+    out["head.bias"] = f32(head["bias"])
     return out

@@ -1,0 +1,173 @@
+"""ResNet50 transfer-learning classifier, inference only.
+
+Counterpart of ``tmat_tpu/models/resnet.py``: Keras ResNet50 v1 (the
+stride on the first 1x1 of a stage's first block, not on the 3x3 as in
+torchvision), truncated at a named block output, then global average
+pooling, a dense head in float32 and the output activation. Each
+convolution carries its batch norm folded in (``params_io.
+from_flax_resnet_variables``), so a block is four convolutions with bias.
+
+Padding as Flax has it: conv1 pads 3 and runs 7x7/2; the max pool pads 1
+with -inf and runs 3x3/2; the 3x3 convolutions pad 1; a 1x1 stride-2
+convolution pads nothing (Flax SAME for a 1x1 kernel, even or odd size).
+
+The base runs in the model's compute dtype (bfloat16 on CUDA, channels
+last); the pooled features are cast to float32 for the head, as the JAX
+model does. ``ensemble_forward`` runs k members on one input: the
+counterpart of the JAX package's vmapped ``make_ensemble_apply``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tmat_torch.device import DeviceLike, resolve_device
+
+# blocks and filters per stage of ResNet50
+_STAGE_BLOCKS = {2: 3, 3: 4, 4: 6, 5: 3}
+_STAGE_FILTERS = {2: 64, 3: 128, 4: 256, 5: 512}
+
+LAST_LAYER_OPTIONS = (
+    "conv5_block3_out",
+    "conv5_block2_out",
+    "conv5_block1_out",
+    "conv4_block6_out",
+)
+
+
+def _parse_last_layer(name: str) -> Tuple[int, int]:
+    """'conv4_block6_out' -> (4, 6)."""
+    parts = name.split("_")
+    stage = int(parts[0][4:])
+    block = int(parts[1][5:])
+    if stage not in _STAGE_BLOCKS or not 1 <= block <= _STAGE_BLOCKS[stage]:
+        raise ValueError(f"Unsupported ResNet50 truncation layer: {name}")
+    return stage, block
+
+
+def _block_specs(last_layer: str) -> list:
+    """(name, filters, stride, conv_shortcut) of each bottleneck block up to
+    ``last_layer``, in order."""
+    last_stage, last_block = _parse_last_layer(last_layer)
+    out = []
+    for stage in range(2, last_stage + 1):
+        n_blocks = _STAGE_BLOCKS[stage] if stage < last_stage else last_block
+        for block in range(1, n_blocks + 1):
+            stride = 1 if (stage == 2 or block > 1) else 2
+            out.append((f"conv{stage}_block{block}", _STAGE_FILTERS[stage], stride, block == 1))
+    return out
+
+
+class BottleneckBlock(nn.Module):
+    """Keras ResNet v1 bottleneck: 1x1/stride -> 3x3 -> 1x1, with a 1x1
+    projection shortcut in a stage's first block."""
+
+    def __init__(self, in_channels: int, filters: int, stride: int, conv_shortcut: bool):
+        super().__init__()
+        self.conv0 = (nn.Conv2d(in_channels, 4 * filters, 1, stride=stride)
+                      if conv_shortcut else None)
+        self.conv1 = nn.Conv2d(in_channels, filters, 1, stride=stride)
+        self.conv2 = nn.Conv2d(filters, filters, 3, padding=1)
+        self.conv3 = nn.Conv2d(filters, 4 * filters, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shortcut = x if self.conv0 is None else self.conv0(x)
+        y = F.relu(self.conv1(x))
+        y = F.relu(self.conv2(y))
+        return F.relu(self.conv3(y) + shortcut)
+
+
+class ResNet50Base(nn.Module):
+    """ResNet50 feature extractor truncated at ``last_layer``; NCHW in and out."""
+
+    def __init__(self, last_layer: str = "conv5_block3_out"):
+        super().__init__()
+        self.last_layer = last_layer
+        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3)
+        self.blocks = nn.ModuleDict()
+        channels = 64
+        for name, filters, stride, shortcut in _block_specs(last_layer):
+            self.blocks[name] = BottleneckBlock(channels, filters, stride, shortcut)
+            channels = 4 * filters
+        self.out_channels = channels
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.conv1(x))
+        x = F.max_pool2d(x, 3, stride=2, padding=1)  # pads with -inf
+        for block in self.blocks.values():
+            x = block(x)
+        return x
+
+
+class ResNet50TL(nn.Module):
+    """Truncated ResNet50 + GAP + dense head. Input (B, h, w, 3) float32,
+    output (B, n_outputs) float32."""
+
+    def __init__(self, n_outputs: int = 1, last_layer: str = "conv5_block3_out",
+                 output_act: str = "sigmoid"):
+        super().__init__()
+        if output_act not in ("sigmoid", "softmax", "linear", None):
+            raise ValueError(f"unsupported output activation {output_act!r}")
+        self.base = ResNet50Base(last_layer)
+        self.head = nn.Linear(self.base.out_channels, n_outputs)
+        self.output_act = output_act
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.base.conv1.weight.dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # NHWC -> NCHW view: the strides of channels_last, no copy
+        x = x.permute(0, 3, 1, 2).to(self.dtype)
+        feats = self.base(x).mean(dim=(2, 3))  # accumulated in float32
+        y = self.head(feats.float())
+        if self.output_act == "sigmoid":
+            return torch.sigmoid(y)
+        if self.output_act == "softmax":
+            return torch.softmax(y, dim=-1)
+        return y
+
+
+def build_resnet50_tl(
+    n_outputs: int,
+    img_shape: Tuple[int, int, int],
+    base_last_layer: str = "conv5_block3_out",
+    output_act: str = "sigmoid",
+    dtype: torch.dtype = torch.float32,
+    device: DeviceLike = None,
+) -> ResNet50TL:
+    """The classifier in eval mode on ``device`` (None = CUDA): the base in
+    ``dtype`` (channels last on CUDA), the head in float32. Weights come
+    from ``load_state_dict`` (``params_io.from_flax_resnet_variables``)."""
+    if tuple(img_shape)[-1] != 3:
+        raise ValueError(f"the classifier takes 3-channel inputs, not {img_shape}")
+    dev = resolve_device(device)
+    model = ResNet50TL(n_outputs, base_last_layer, output_act).eval().requires_grad_(False)
+    model.to(dev)
+    model.base.to(dtype=dtype, memory_format=(torch.channels_last if dev.type == "cuda"
+                                              else torch.contiguous_format))
+    return model
+
+
+def load_member(model: ResNet50TL, weights) -> ResNet50TL:
+    """Copy a ``from_flax_resnet_variables`` weight map into ``model``,
+    each tensor cast to the dtype and layout of the one it replaces."""
+    state = model.state_dict()
+    missing = set(state) ^ set(weights)
+    if missing:
+        raise ValueError(f"weights do not fit the model: {sorted(missing)[:6]}")
+    with torch.no_grad():
+        for name, t in state.items():
+            t.copy_(torch.as_tensor(weights[name]))
+    return model
+
+
+@torch.no_grad()
+def ensemble_forward(members: Sequence[ResNet50TL], x: torch.Tensor) -> torch.Tensor:
+    """(k, B, n_outputs) float32: each member on the same (B, h, w, 3)
+    input, in turn on the current stream."""
+    return torch.stack([m(x) for m in members])

@@ -9,6 +9,11 @@ kernel stretched by 1/scale when downsampling, each output's weights
 normalised to sum 1, and outputs whose sample point lies outside the
 input zeroed. They are applied as two matmuls; a dim whose size does not
 change is left as it is. Integer inputs are rounded and clipped.
+
+``resize_lanczos4_host`` is the other Lanczos-4: the true a=4 kernel of
+cv2's INTER_LANCZOS4, applied in numpy on the host as two GEMMs
+(``tmat_tpu/ops/resize.py::resize_lanczos4_host``); the inv_depth tool's
+ingest uses it.
 """
 
 from __future__ import annotations
@@ -107,6 +112,37 @@ def resize(img: torch.Tensor, shape: Tuple[int, int], method: str = "linear") ->
         info = torch.iinfo(dtype)
         out = torch.clamp(torch.round(out), info.min, info.max)
     return out.to(dtype)
+
+
+def lanczos4_weight_matrix(in_size: int, out_size: int, a: int = 4) -> np.ndarray:
+    """(out_size, in_size) float32 weights of the antialiased Lanczos-a
+    kernel (a=4: cv2's INTER_LANCZOS4): pixel centres aligned, the kernel
+    stretched by 1/scale when downsampling, each row normalised to 1; in
+    float64 until the last cast, as the JAX package builds them."""
+    scale = out_size / in_size
+    stretch = max(1.0 / scale, 1.0)
+    coord = (np.arange(out_size) + 0.5) / scale - 0.5
+    x = (np.arange(in_size)[None, :] - coord[:, None]) / stretch
+    with np.errstate(invalid="ignore"):
+        w = np.where(np.abs(x) < a, np.sinc(x) * np.sinc(x / a), 0.0)
+    w /= np.sum(w, axis=1, keepdims=True)
+    return w.astype(np.float32)
+
+
+def resize_lanczos4_host(stack, shape: Tuple[int, int]) -> np.ndarray:
+    """Lanczos-4 resize of the trailing (H, W) axes of ``stack`` on the
+    host, as float32: two GEMMs, each with the batch folded into its free
+    dimension (the order of the JAX package's, so the results are equal)."""
+    stack = np.asarray(stack, np.float32)
+    lead = stack.shape[:-2]
+    H, W = stack.shape[-2:]
+    h, w = shape
+    wh = lanczos4_weight_matrix(H, h)
+    ww = lanczos4_weight_matrix(W, w)
+    flat = stack.reshape(-1, H, W)
+    t1 = (wh @ flat.transpose(1, 0, 2).reshape(H, -1)).reshape(h, -1, W)
+    t2 = np.ascontiguousarray(t1.transpose(1, 0, 2)).reshape(-1, W) @ ww.T
+    return t2.reshape(*lead, h, w)
 
 
 def target_shape_for_ratio(shape: Tuple[int, int], ratio: float) -> Tuple[int, int]:

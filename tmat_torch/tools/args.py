@@ -1,10 +1,10 @@
 """Argument parsers and input/output directory checks of the port's tools.
 
-A copy of what the plate, zproj, cell-area and branches tools use from
-``tmat_tpu/tools/args.py``: the same flags per tool, files-XOR-dirs input
-validation, Z-stack vs 2-D input resolution, create-or-warn output
-verification and the config-file echo. The multi-process discovery check
-is not ported (single process only).
+A copy of what the plate, zproj, cell-area, inv_depth and branches tools
+use from ``tmat_tpu/tools/args.py``: the same flags per tool,
+files-XOR-dirs input validation, Z-stack vs 2-D input resolution,
+create-or-warn output verification and the config-file echo. The
+multi-process discovery check is not ported (single process only).
 """
 
 from __future__ import annotations
@@ -176,6 +176,18 @@ def parse_cell_area_args(arg_defaults: Dict[str, Any], argv=None) -> argparse.Na
     parser.add_argument(
         "-c", "--config", type=str, default=arg_defaults["default_config_path"],
         help="Path to the cell-area configuration file.",
+    )
+    return parser.parse_args(argv)
+
+
+def parse_inv_depth_args(arg_defaults: Dict[str, Any], argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(
+        description="Predict depth of invasion for each Z slice of input stacks."
+    )
+    _add_common_io_args(parser)
+    parser.add_argument(
+        "-c", "--config", type=str, default=arg_defaults["default_config_path"],
+        help="Path to the invasion-depth configuration file.",
     )
     return parser.parse_args(argv)
 

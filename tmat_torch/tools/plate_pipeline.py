@@ -381,6 +381,23 @@ def main(args=None, argv=None, device: DeviceLike = None):
                         "UNet (default: the model config's 'tta' key, else 8).")
     if args is None:
         args = p.parse_args(argv)
+    else:
+        # a namespace from the GUI: absent flags take the parser's defaults,
+        # and the checks argparse would have made are made here
+        for name in ("model_cfg", "sd_coef", "detect_well", "method", "tta"):
+            if getattr(args, name, None) in (None, ""):
+                setattr(args, name, p.get_default(name))
+        for required in ("in_root", "out_root", "image_width_microns"):
+            if getattr(args, required, None) in (None, ""):
+                print(f"{SFM.failure} Missing required field: {required}", flush=True)
+                sys.exit(2)
+        if args.method not in ("min", "max", "med", "avg", "fs"):
+            print(f"{SFM.failure} Invalid projection method: {args.method!r} "
+                  "(choose from min/max/med/avg/fs)", flush=True)
+            sys.exit(2)
+        if args.tta and int(args.tta) not in (1, 4, 8):
+            print(f"{SFM.failure} Invalid tta value: {args.tta!r} (choose 1, 4 or 8)", flush=True)
+            sys.exit(2)
     dev = resolve_device(device)
 
     from tmat_torch.tools import args as su
