@@ -6,7 +6,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device: the card's name, count and power limit (no CUDA device: exit 1);
 2. build: the two CUDA kernels and the three host libraries, from the
-   sources in this checkout, all compilers started together;
+   sources in this checkout, all compilers started together, into an
+   empty build cache (``TMAT_TORCH_BUILD_DIR``, a temporary directory);
 3. kernel: the fused down block against its plain PyTorch version at the
    three production block shapes (B=8, f32 and bf16) and at an odd-width
    block, so that both forms of the kernel (the warpgroup form of the bf16
@@ -47,12 +48,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
    its bound on this card;
 12. cli: ``tmat_torch.cli.main(["compute_inv_depth", IN, OUT])`` on two of
    those stacks written as ND2 files; its CSV rows against
-   ``predict_stack``'s; ``-h`` and an unknown subcommand.
+   ``predict_stack``'s; ``-h`` and an unknown subcommand;
+13. profile: a ``max`` plate run (8 new wells) under
+   ``core/profiling.py::maybe_profile``; the card's busy share over the
+   run, from the kernels and copies in the trace, and the run's time
+   without the profiler;
+14. warmup: ``python -m tmat_torch.cli warmup`` in a fresh process on an
+   empty build cache, then in a second fresh process: 5 libraries built,
+   then 0, and the same outputs; both processes' wall times;
+15. distributed: ``compute_inv_depth`` (the eight stacks of phase 11),
+   ``compute_branches`` on eight 2-D images (``--no-vis``) and
+   ``process_plate`` on eight wells, all as ND2 files, each by one process
+   and by two on this card (``parallel/validation.py::
+   run_coordinated_workers``): CSVs byte-equal, items per second of both,
+   the host's cores and BLAS.
 
 Phase 4 also holds the bf16 kernel path's mask against an f32 forward of
-the plain path. The launch counts of phases 5, 8, 9 and 10 go into the
-kernels line; phases 11 and 12 launch neither kernel. The last line is
-{"ok": true, "device": {...}}.
+the plain path. The launch counts of phases 5, 8, 9, 10, 13 and 15 go into
+the kernels line; phases 11 and 12 and the inv_depth runs of 15 launch
+neither kernel. The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -62,6 +76,7 @@ import csv
 import json
 import os
 import struct
+import subprocess
 import sys
 import tempfile
 import time
@@ -98,8 +113,12 @@ INV_STACKS = 8  # uint8 (8, 1024, 1024) stacks of the inv_depth phase
 INV_TOL = 0.02  # bf16 against f32 probabilities, and the margin around cls_thresh
 
 
+_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, "at_s": time.perf_counter() - _START, **fields}), flush=True)
 
 
 def block_work(b: int, h: int, c: int, f: int, dtype: torch.dtype) -> dict:
@@ -137,10 +156,12 @@ def phase_build():
         futures = {name: pool.submit(job) for name, job in jobs.items()}
         paths = {name: str(f.result()) for name, f in futures.items()}
     seconds = time.perf_counter() - t0
+    if build.builds != len(jobs):
+        raise AssertionError(f"{build.builds} libraries built into an empty cache, not {len(jobs)}")
     ptxas = [ln.strip() for name in ("down_block", "focus_stack")
              for ln in build.logs.get(name, "").splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-    emit("build", seconds=round(seconds, 3), libraries=paths, ptxas=ptxas)
+    emit("build", seconds=round(seconds, 3), built=build.builds, libraries=paths, ptxas=ptxas)
 
 
 def phase_kernel(rng, device):
@@ -838,6 +859,265 @@ def phase_cli(stacks, ens, hw, thresh, device):
     emit("cli", stacks=2, format="nd2", rows=len(rows), seconds=cli_s, exit_codes=[code, help_code, unknown_code])
 
 
+def _child_env(**extra) -> dict:
+    """This process's environment for a child process that imports this
+    checkout's ``tmat_torch``."""
+    root = str(Path(__file__).resolve().parent)
+    env = {**os.environ, **{k: str(v) for k, v in extra.items()}}
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def _empty_base(path: Path) -> Path:
+    """A base dir whose config and model dirs exist (so that the CLI does
+    not configure one) and are empty (so that the shipped files are used)."""
+    for sub in ("config", "model_training"):
+        (path / sub).mkdir(parents=True, exist_ok=True)
+    return path
+
+
+def phase_warmup(tmp: Path):
+    """``tmat-torch warmup`` in a fresh process on an empty build cache,
+    then in a second fresh process: 5 libraries built, then none, and the
+    same outputs."""
+    import re
+
+    env = _child_env(TMAT_TORCH_BUILD_DIR=tmp / "warm_build", TMAT_TPU_BASE_DIR=_empty_base(tmp / "warm_base"),
+                     TMPDIR=tmp)
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "tmat_torch.cli", "warmup"], env=env,
+                              capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"warmup exited {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        built = [int(v) for v in re.search(r"(\d+) of (\d+) native libraries built in ([\d.]+)s",
+                                           proc.stdout).groups()[:2]]
+        build_s = float(re.search(r"native libraries built in ([\d.]+)s", proc.stdout).group(1))
+        tools = {name: (float(sec), digest) for name, sec, digest in
+                 re.findall(r"(\w+) warmed in ([\d.]+)s \(outputs sha256 (\w+)\)", proc.stdout)}
+        runs.append({"seconds": seconds, "built": built, "build_s": build_s, "tools": tools})
+    (first, second) = runs
+    if first["built"] != [5, 5] or second["built"] != [0, 5]:
+        raise AssertionError(f"warmup built {first['built']} then {second['built']} libraries, not [5, 5], [0, 5]")
+    if set(first["tools"]) != {"zproj", "area", "branches", "inv_depth", "plate"}:
+        raise AssertionError(f"warmup ran {sorted(first['tools'])}")
+    digests = [{k: d for k, (_, d) in run["tools"].items()} for run in runs]
+    if digests[0] != digests[1]:
+        raise AssertionError(f"the two warmup processes wrote different outputs: {digests}")
+    emit("warmup", process_seconds=[r["seconds"] for r in runs], build_seconds=[r["build_s"] for r in runs],
+         libraries_built=[r["built"][0] for r in runs], libraries=first["built"][1],
+         tool_seconds=[{k: v for k, (v, _) in r["tools"].items()} for r in runs],
+         outputs_equal=True, output_sha256=digests[0])
+
+
+# One process of a striped tool run: the tool once on the two warm-up items
+# (each process its share), then timed on them again, then timed on all the
+# items with this process's kernel launches counted from zero; a barrier
+# after each. The difference of the two timed runs is the items' own cost,
+# without the tool's fixed cost (model load, listing, ...).
+_DIST_WORKER = """
+import json, sys, time
+from tmat_torch.parallel import distributed as d
+d.maybe_initialize_from_env()
+from tmat_torch.ops import down_block as db, focus_stack as fs
+from tmat_torch.tools import {module} as t
+warm, small, run = (json.loads(a) for a in sys.argv[1:4])
+t.main(argv=warm)
+d.sync_processes("warm")
+t0 = time.perf_counter()
+t.main(argv=small)
+d.sync_processes("small")
+small_s = time.perf_counter() - t0
+db.launches = fs.launches = 0
+t0 = time.perf_counter()
+t.main(argv=run)
+d.sync_processes("run")
+seconds = time.perf_counter() - t0
+print("DIST_RESULT " + json.dumps({{"seconds": seconds, "small_seconds": small_s, "down_block": db.launches,
+                                    "focus_stack": fs.launches}}))
+"""
+
+
+def phase_distributed(inv_stacks, plate, images, tmp: Path):
+    """inv_depth (stacks), branches (2-D images) and the plate (wells),
+    each by one process and by two on the one card, through
+    ``run_coordinated_workers``: the CSVs byte-equal, the rates of both."""
+    from tmat_torch.parallel.validation import run_with_retry
+
+    def write_items(directory: Path, arrays, names):
+        directory.mkdir(parents=True)
+        for a, name in zip(arrays, names):
+            write_nd2(directory / f"{name}.nd2", a if a.ndim == 3 else a[None])
+        warm = directory.with_name(directory.name + "_warm")
+        warm.mkdir()
+        for name in names[:2]:
+            os.link(directory / f"{name}.nd2", warm / f"{name}.nd2")
+        return directory, warm
+
+    width = ["--image-width-microns", "1200"]
+    cases = {
+        "inv_depth": ("compute_inv_depth", write_items(tmp / "d_inv", inv_stacks,
+                                                       [f"S{i}" for i in range(len(inv_stacks))]),
+                      [], ["invasion_depth_predictions.csv"]),
+        "branches_2d": ("compute_branches", write_items(tmp / "d_branches", images,
+                                                        [f"I{i}" for i in range(len(images))]),
+                        width + ["--no-vis"], ["branching_analysis.csv", "config.json"]),
+        "plate": ("plate_pipeline", write_items(tmp / "d_plate", plate, [f"W{i}" for i in range(len(plate))]),
+                  width, ["plate_results.csv"]),
+    }
+    env = {"TMAT_TPU_BASE_DIR": _empty_base(tmp / "d_base")}
+    out = {"host_cores": os.cpu_count(), "host_cores_usable": len(os.sched_getaffinity(0)),
+           "torch_threads": torch.get_num_threads(),
+           "blas": {k: os.environ.get(k) for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")},
+           "blas_config": _blas_config(), "inv_depth_host_resize": resize_spread()}
+    launches = {}
+    for name, (module, (in_dir, warm_dir), tail, csvs) in cases.items():
+        n_items = len(list(in_dir.iterdir()))
+        rates, marginal, csv_bytes, counts = {}, {}, {}, {}
+        for n_proc in (1, 2):
+            out_dir = tmp / f"d_{name}_out{n_proc}"
+            argv = [json.dumps([str(warm_dir), str(tmp / f"d_{name}_{stage}{n_proc}"), *tail])
+                    for stage in ("warm", "small")] + [json.dumps([str(in_dir), str(out_dir), *tail])]
+            outs = run_with_retry(["-c", _DIST_WORKER.format(module=module), *argv], n_proc,
+                                  extra_env=env, timeout=600)
+            results = [json.loads(o.split("DIST_RESULT ", 1)[1].splitlines()[0]) for o in outs]
+            rates[n_proc] = n_items / results[0]["seconds"]
+            n_small = len(list(warm_dir.iterdir()))
+            marginal[n_proc] = (n_items - n_small) / (results[0]["seconds"] - results[0]["small_seconds"])
+            counts[n_proc] = {k: sum(r[k] for r in results) for k in ("down_block", "focus_stack")}
+            csv_bytes[n_proc] = {c: (out_dir / c).read_bytes() for c in csvs}
+        if csv_bytes[1] != csv_bytes[2]:
+            raise AssertionError(f"{name}: the two-process CSVs differ from the one-process CSVs")
+        out[name] = {"items": n_items, "per_sec_1": rates[1], "per_sec_2": rates[2],
+                     "speedup": rates[2] / rates[1], "marginal_per_sec_1": marginal[1],
+                     "marginal_per_sec_2": marginal[2], "marginal_speedup": marginal[2] / marginal[1],
+                     "launches": counts, "csv_bytes_equal": True}
+        launches[name] = counts
+    if launches["inv_depth"] != {1: {"down_block": 0, "focus_stack": 0}, 2: {"down_block": 0, "focus_stack": 0}}:
+        raise AssertionError(f"the inv_depth path launched a kernel: {launches['inv_depth']}")
+    for name, n_items in (("branches_2d", len(images)), ("plate", len(plate))):
+        for n_proc in (1, 2):
+            if launches[name][n_proc]["down_block"] != 3 * n_items:
+                raise AssertionError(f"{name} at {n_proc} processes: {launches[name][n_proc]} launches for "
+                                     f"{n_items} UNet forwards")
+    emit("distributed", **out)
+    return {name: sum(c["down_block"] for c in counts.values()) for name, counts in launches.items()
+            if name != "inv_depth"}
+
+
+_RESIZE_CHILD = """
+import time, numpy as np
+from tmat_torch.models.preprocess import host_resize
+x = np.random.RandomState(0).randint(0, 256, (8, 1024, 1024)).astype(np.uint8)
+host_resize(x, (256, 256))
+times = []
+for _ in range(5):
+    t0 = time.perf_counter()
+    host_resize(x, (256, 256))
+    times.append(time.perf_counter() - t0)
+print("RESIZE_MS", min(times) * 1e3)
+"""
+
+
+def resize_spread() -> dict:
+    """The inv_depth host resize of one uint8 (8, 1024, 1024) stack, best of
+    five, in fresh processes: alone with numpy's default BLAS threads, alone
+    with one BLAS thread, and two at once with the default threads."""
+
+    def run(n: int, **env):
+        procs = [subprocess.Popen([sys.executable, "-c", _RESIZE_CHILD], env=_child_env(**env),
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for _ in range(n)]
+        outs = [p.communicate(timeout=300) for p in procs]
+        if any(p.returncode for p in procs):
+            raise AssertionError(f"a resize probe failed: {[err[-2000:] for _, err in outs]}")
+        return [float(out.split("RESIZE_MS", 1)[1]) for out, _ in outs]
+
+    return {"default_threads_ms": run(1)[0], "one_blas_thread_ms": run(1, OPENBLAS_NUM_THREADS=1)[0],
+            "two_processes_default_threads_ms": run(2)}
+
+
+def _blas_config() -> str:
+    """numpy's BLAS, as its build configuration names it."""
+    import io
+    from contextlib import redirect_stdout
+
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        np.show_config()
+    return "; ".join(sorted({line.strip() for line in buf.getvalue().splitlines()
+                             if "openblas configuration" in line}))
+
+
+def _union_us(intervals) -> float:
+    total, end = 0.0, -float("inf")
+    for start, stop in sorted(intervals):
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total
+
+
+def phase_profile(seg, n_wells: int, rng, device, tmp: Path):
+    """One ``max`` plate run under ``maybe_profile``: the card's busy share
+    over the whole run, from the trace that the profiler wrote."""
+    from tmat_torch.core.profiling import PROFILE_DIR_ENV, maybe_profile
+    from tmat_torch.ops import down_block as db
+    from tmat_torch.tools.plate_pipeline import run_plate
+
+    plate = synthetic_plate(n_wells, rng)
+    ids = [f"P{i}" for i in range(n_wells)]
+    config = {"image_width_microns": 1200.0}
+    os.environ[PROFILE_DIR_ENV] = str(tmp / "profile")
+    try:
+        torch.cuda.synchronize()
+        db.launches = 0  # the traced run starts here
+        t0 = time.perf_counter()
+        with maybe_profile("plate") as prof:
+            if prof is None:
+                raise AssertionError("maybe_profile did not trace with its variable set")
+            t1 = time.perf_counter()
+            res = run_plate(plate, ids, seg, config, device=device)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t1
+        # with the profiler's start, stop and the trace's export
+        traced_s = time.perf_counter() - t0
+        launches = db.launches  # ... and ends here
+    finally:
+        os.environ.pop(PROFILE_DIR_ENV)
+    res.pop("_timer")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = run_plate(plate, ids, seg, config, device=device)
+    untraced_s = time.perf_counter() - t0
+    plain.pop("_timer")
+    if plain != res:
+        raise AssertionError("the traced plate run differs from the untraced one")
+    traces = list((tmp / "profile" / "plate").glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"maybe_profile wrote {traces}")
+    with open(traces[0]) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    device_cats = {"kernel", "gpu_memcpy", "gpu_memset"}
+    kernels = [(e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == "kernel"]
+    on_device = [(e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") in device_cats]
+    if not kernels:
+        raise AssertionError("the trace holds no kernel of the card")
+    # over the run by the host clock, and from the first to the last device event
+    busy_us, kernel_us = _union_us(on_device), _union_us(kernels)
+    device_span_us = max(b for _, b in on_device) - min(a for a, _ in on_device)
+    if launches != 3 * n_wells:
+        raise AssertionError(f"{launches} down-block launches for {n_wells} traced wells")
+    emit("profile", wells=n_wells, run_s=run_s, untraced_s=untraced_s, with_profiler_s=traced_s,
+         trace_bytes=traces[0].stat().st_size, kernels=len(kernels), device_busy_s=busy_us / 1e6,
+         kernel_busy_s=kernel_us / 1e6, kernel_time_sum_s=sum(b - a for a, b in kernels) / 1e6,
+         device_busy_share=busy_us / 1e6 / run_s, device_idle_share=1 - busy_us / 1e6 / run_s,
+         kernel_busy_share=kernel_us / 1e6 / run_s, device_span_s=device_span_us / 1e6,
+         device_busy_share_of_span=busy_us / device_span_us, launches=launches)
+    return launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--wells", type=int, default=8)
@@ -855,7 +1135,13 @@ def main(argv=None) -> int:
     smi = card_line()
     emit("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # an empty build cache: every library is built from this checkout's sources
+        os.environ["TMAT_TORCH_BUILD_DIR"] = str(Path(tmp) / "build")
+        return run_phases(args, Path(tmp), device, kind, smi)
 
+
+def run_phases(args, tmp: Path, device, kind: str, smi: str) -> int:
     from tmat_torch.models.unet import get_unet_patch_segmentor_from_cfg
 
     phase_build()
@@ -884,15 +1170,25 @@ def main(argv=None) -> int:
     del ens
     torch.cuda.empty_cache()
 
+    profile_rng = np.random.RandomState(args.seed + 1)
+    profile_launches = phase_profile(seg, args.wells, profile_rng, device, tmp)
+    phase_warmup(tmp)
+    dist_launches = phase_distributed(
+        inv_stacks, synthetic_plate(args.wells, profile_rng),
+        [well.max(axis=0) for well in synthetic_plate(args.wells, profile_rng)], tmp)
+
     one_stack = focus_timings[0]  # (1, 8, 1024, 1024): what both paths launch
     kernels = [{
         "name": "down_block",
         "route": "cuda",
         "source": "tmat_torch/csrc/down_block.cu",
         "replaces": "tmat_tpu/ops/pallas_unet.py:245",
-        "launches": launches + fs_launches["down_block"] + branch_launches,
+        "launches": (launches + fs_launches["down_block"] + branch_launches + profile_launches
+                     + sum(dist_launches.values())),
         "launches_by_path": {"plate": launches, "plate_fs": fs_launches["down_block"],
-                             "branches": branch_launches},
+                             "branches": branch_launches, "profile": profile_launches,
+                             "distributed_branches_2d": dist_launches["branches_2d"],
+                             "distributed_plate": dist_launches["plate"]},
         "max_abs_err": max(e["max_abs_err"] for e in errors),
         # one UNet forward of 200 patches: the three production blocks
         "ms": sum(t["ms"] for t in timings),

@@ -24,7 +24,8 @@ from scipy import ndimage
 from tmat_tpu.ops import filters as jfilters, morphology as jmorph, resize as jresize, sato as jsato
 from tmat_tpu.ops import blur as jblur
 from tmat_tpu.tools import compute_branches as jcb
-from tmat_tpu.topo import labeling_native as jln, regionprops as jrp, transforms as jtf
+from tmat_tpu.topo import dmtgraph as jdmt, labeling_native as jln, morse_native as jmn
+from tmat_tpu.topo import regionprops as jrp, transforms as jtf
 from tmat_tpu.topo.morse import MorseGraph as JaxMorseGraph
 from tmat_torch.ops import blur, filters, morphology, sato
 from tmat_torch.ops.resize import resize
@@ -41,9 +42,11 @@ def build_jax_engines() -> None:
     The JAX package's own build writes the library in place, so a worker
     that loads it while another writes it falls back to NumPy for good (and
     its disk(2) filter then writes into a read-only array; ROADMAP.md Queue
-    3). Every xdist worker imports this file while collecting, and no test
-    runs before all workers have collected, so after this no test of either
-    package meets a half-written library."""
+    3). tests/test_labeling_native.py runs that build while it is collected,
+    in every xdist worker at once, before this file is collected. No test
+    runs before all workers have collected, so once this build and
+    ``reset_jax_engines`` have run, the libraries that the tests load are
+    whole."""
     csrc = Path(jln.__file__).resolve().parent / "csrc"
     for name in ("labeling", "dmtgraph", "morse"):
         src, lib = csrc / f"{name}.cpp", csrc / f"_{name}.so"
@@ -58,13 +61,38 @@ def build_jax_engines() -> None:
         os.replace(tmp, lib)
 
 
+def reset_jax_engines() -> None:
+    """Forget what the JAX package's three bindings remember of earlier loads.
+
+    Each binding caches its library, or its failure to build or load it,
+    for the life of the process. A worker whose collection of
+    tests/test_labeling_native.py loaded a library that another worker was
+    still writing in place keeps that failure, and would fall back to NumPy
+    after complete libraries are in place. Reset, the next call loads the
+    library anew."""
+    for module in (jln, jdmt, jmn):
+        with module._LOCK:
+            module._BUILD_FAILED = False
+            module._LIB = None
+
+
 build_jax_engines()
+reset_jax_engines()
 
 
 @pytest.fixture(scope="module", autouse=True)
 def jax_native_engine():
     """The JAX package's labeling engine, loaded (the tests compare with it)."""
     assert jln.available(), "the JAX package's labeling engine does not load"
+
+
+def test_reset_brings_back_a_failed_jax_engine(monkeypatch):
+    """A cached failure (what a half-written library leaves) is forgotten."""
+    monkeypatch.setattr(jln, "_BUILD_FAILED", True)
+    monkeypatch.setattr(jln, "_LIB", None)
+    assert not jln.available()
+    reset_jax_engines()
+    assert jln.available() and jln._LIB is not None
 
 
 def _t(x):

@@ -53,7 +53,7 @@ def test_help_exits_zero(capsys):
     assert cli.main(["-h"]) == 0
     out = capsys.readouterr().out
     assert all(name in out for name in ["configure", *TOOLS])
-    assert "warmup" not in out and "tmat-torch" in out
+    assert "warmup" in out and "tmat-torch" in out
 
 
 def test_module_help_exits_zero():
@@ -70,11 +70,11 @@ def test_unknown_subcommand(capsys):
     assert "Unknown subcommand" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("command", list(TOOLS))
+@pytest.mark.parametrize("command", [*TOOLS, "warmup"])
 def test_each_subcommand_reaches_the_port_tool(command, base, monkeypatch):
     import importlib
 
-    module = importlib.import_module(f"tmat_torch.tools.{TOOLS[command]}")
+    module = importlib.import_module(f"tmat_torch.tools.{TOOLS.get(command, command)}")
     calls = []
     monkeypatch.setattr(module, "main", lambda argv, device: calls.append((argv, device)))
     assert cli.main([command, "IN", "OUT", "--flag"], device="cpu") == 0
@@ -90,6 +90,19 @@ def test_each_subcommand_reaches_the_port_tool(command, base, monkeypatch):
 def test_subcommand_help_dispatches(command, flag, base, capsys):
     assert cli.main([command, "-h"], device="cpu") == 0
     assert flag in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("command", [*TOOLS, "warmup"])
+def test_help_needs_no_card(command, base, monkeypatch, capsys):
+    """Without a CUDA device (and no device given), ``-h`` prints the usage
+    and exits 0 and a bad flag exits 2, as in the JAX tools."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.main([command, "-h"]) == 0
+    assert "usage:" in capsys.readouterr().out
+    assert cli.main([command, "--no-such-flag"]) == 2
+    assert "error:" in capsys.readouterr().err
 
 
 def test_dispatch_zproj(base, rng):

@@ -1,9 +1,10 @@
 """Command-line interface of the port: ``tmat-torch``.
 
-Counterpart of ``tmat_tpu/cli.py``: the subcommand ``configure`` and the
-five tools, an interactive numbered menu when no subcommand is given,
-and the base directory configured first when it is missing. Each tool
-runs in this process through its ``main``, on ``device`` (None = CUDA).
+Counterpart of ``tmat_tpu/cli.py``: the subcommand ``configure``, the
+five tools and ``warmup``, an interactive numbered menu when no
+subcommand is given, and the base directory configured first when it is
+missing. Each tool runs in this process through its ``main``, on
+``device`` (None = CUDA; under torchrun, each process's card).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ Available subcommands:
     compute_inv_depth: Predict depth of invasion.
     compute_branches: Analyze microvessel branching.
     process_plate: Run a whole plate end-to-end (zproj + cell area + branches).
+    warmup: Precompile the pipelines at your plate geometry (fast cold starts).
 
 Get available options:
     -h, --help: Show this help message and exit.
@@ -37,6 +39,7 @@ Examples:
     tmat-torch compute_zproj ./stacks ./out -m fs
     tmat-torch compute_inv_depth ./stacks ./out
     tmat-torch compute_branches ./images ./out --image-width-microns 1200
+    tmat-torch warmup --size 1024 --z 8
 ''')}
 """
 
@@ -48,6 +51,7 @@ def _tool_modules():
         compute_inv_depth,
         compute_zproj,
         plate_pipeline,
+        warmup,
     )
 
     return {
@@ -56,6 +60,7 @@ def _tool_modules():
         "compute_inv_depth": compute_inv_depth,
         "compute_branches": compute_branches,
         "process_plate": plate_pipeline,
+        "warmup": warmup,
     }
 
 

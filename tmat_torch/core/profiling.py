@@ -1,11 +1,20 @@
-"""Per-stage wall-clock accounting (``tmat_tpu/core/profiling.py::StageTimer``)."""
+"""Per-stage wall-clock accounting and an opt-in device trace.
+
+Counterpart of ``tmat_tpu/core/profiling.py``: ``StageTimer``, and
+``maybe_profile``, a ``torch.profiler`` trace of the CPU and the card
+written when ``TMAT_TORCH_PROFILE_DIR`` is set (where the JAX package
+writes a ``jax.profiler`` trace under ``TMAT_TPU_PROFILE_DIR``).
+"""
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from contextlib import contextmanager
 from typing import Dict
+
+PROFILE_DIR_ENV = "TMAT_TORCH_PROFILE_DIR"
 
 
 class StageTimer:
@@ -39,3 +48,24 @@ class StageTimer:
             lines.append(f"  {name}: {total:.3f}s total / {n} calls "
                          f"({total / n * 1000:.1f} ms avg)")
         return "\n".join(lines)
+
+
+@contextmanager
+def maybe_profile(label: str = "tmat_torch"):
+    """Trace the block with ``torch.profiler`` (CPU, and CUDA where there is
+    a card) into ``$TMAT_TORCH_PROFILE_DIR/<label>/`` as a Chrome trace
+    (``*.pt.trace.json``), and yield the profiler; without the variable,
+    do nothing and yield None."""
+    profile_dir = os.environ.get(PROFILE_DIR_ENV)
+    if not profile_dir:
+        yield None
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(os.path.join(profile_dir, label))) as prof:
+        yield prof

@@ -7,7 +7,7 @@ TPU kernel ``_down_block_kernel``). One block computes, per image,
     folded) -> maxpool 3x3/s2 TF-SAME  +  x[::2, ::2] @ wr + br
 
 on an NHWC batch. The kernel (``csrc/down_block.cu``) is built with
-``nvcc`` into ``tmat_torch/_build/`` at first use and called through
+``nvcc`` into the build cache (``build.py``) at first use and called through
 ctypes on PyTorch's current stream. A CUDA tensor always goes to the
 kernel (a failed build or launch raises); a CPU tensor goes to
 ``down_block_plain``, which rounds at the same points in PyTorch.

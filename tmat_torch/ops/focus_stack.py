@@ -12,8 +12,8 @@ with a 4-pixel REFLECT_101 border that keeps reflecting on images smaller
 than the support. The result has the stacks' dtype (uint8, uint16 or
 float32); the arithmetic is float32.
 
-The kernel (``csrc/focus_stack.cu``) is built with ``nvcc`` into
-``tmat_torch/_build/`` at first use and called through ctypes on PyTorch's
+The kernel (``csrc/focus_stack.cu``) is built with ``nvcc`` into the
+build cache (``build.py``) at first use and called through ctypes on PyTorch's
 current stream. A CUDA tensor always goes to the kernel (a failed build or
 launch raises); a CPU tensor goes to ``focus_stack_plain``, which sums the
 same taps in the same order: the kernel is compiled without FMA contraction,

@@ -3,8 +3,8 @@
 A copy of what the plate, zproj, cell-area, inv_depth and branches tools
 use from ``tmat_tpu/tools/args.py``: the same flags per tool,
 files-XOR-dirs input validation, Z-stack vs 2-D input resolution,
-create-or-warn output verification and the config-file echo. The
-multi-process discovery check is not ported (single process only).
+create-or-warn output verification, the config-file echo and the
+multi-process discovery check.
 """
 
 from __future__ import annotations
@@ -20,6 +20,30 @@ from typing import Any, Dict, List, Sequence, Union
 
 from tmat_torch.core import io as tio, zdiscovery as zd
 from tmat_torch.core.log import SFM, section_footer, section_header
+
+
+def check_striped_discovery(ids) -> None:
+    """Exit 1 unless every process discovered the same ordered work list.
+
+    A multi-process run stripes its work over the discovered inputs
+    (``parallel/distributed.py::stripe``), which is coherent only when
+    every process sees the same list, that is, when the input (and any
+    chained) directory is on storage that they share. A process that
+    cannot see an item it owns would drop it without a word. No-op in
+    one process."""
+    from tmat_torch.parallel.distributed import gather_objects, is_multiprocess
+
+    if not is_multiprocess():
+        return
+    listings = gather_objects(list(ids))
+    if any(listing != listings[0] for listing in listings[1:]):
+        print(
+            f"{SFM.failure} Input discovery differs across processes "
+            "(multi-process runs need their input and output directories on "
+            "shared storage); refusing to stripe a divergent work list.",
+            flush=True,
+        )
+        sys.exit(1)
 
 
 def _input_dir_help() -> None:

@@ -5,7 +5,10 @@ lengths of 2-D images (the UNet patch segmentor, through the down-block
 kernel on the card) or of Z stacks (multi-scale Sato vesselness), through
 a discrete Morse graph. Same flags, CSV contract (UTF-16
 ``branching_analysis{tag}[-N].csv``, one per graph-threshold sweep
-config), visualization PNGs and exit codes; single process.
+config), visualization PNGs and exit codes. Under torchrun each process
+analyses a round-robin stripe of the images and writes their PNGs; the
+primary appends every process's rows in discovery order and writes
+``config.json`` (``parallel/distributed.py``).
 
 The device work is ``analyze_branches``, which takes an array and returns
 the CSV rows per sweep tag and the visualization rasters, touching no
@@ -25,7 +28,7 @@ file; ``analyze_img`` loads a file, calls it and writes the outputs.
 - Statistics: the Python ``MorseGraph`` (with its barcode and tree plots),
   or with ``--no-vis`` the native Morse engine; the CSVs are identical.
 
-Not ported: the multi-process striping and the AOT executable cache.
+Not ported: the AOT executable cache (the port compiles no program).
 
 Usage:
     python -m tmat_torch.tools.compute_branches IN_DIR OUT_DIR \
@@ -38,6 +41,7 @@ import csv
 import json
 import os
 import sys
+import traceback
 from dataclasses import dataclass, field
 from itertools import product
 from pathlib import Path
@@ -60,6 +64,8 @@ from tmat_torch.ops.rescale import rescale_intensity
 from tmat_torch.ops.resize import resize, target_shape_for_ratio
 from tmat_torch.ops.sato import sato
 from tmat_torch.ops.wellmask import make_well_mask
+from tmat_torch.parallel.distributed import (
+    is_multiprocess, is_primary, maybe_initialize_from_env, merge_striped_rows, process_index, stripe)
 from tmat_torch.tools import args as su
 from tmat_torch.topo import regionprops as rp
 from tmat_torch.topo.morse import MorseGraph
@@ -452,9 +458,11 @@ def analyze_img(
     created_csv_files: set,
     use_well_mask: bool = False,
     device: DeviceLike = None,
+    row_sink=None,
 ) -> None:
     """Measure branches in one image file (or slice sequence), save its
-    visualizations and append its rows to the CSVs."""
+    visualizations and append its rows to the CSVs, or hand each row to
+    ``row_sink(tuned_str, fields)`` when one is given."""
     print("", flush=True)
     print("=========================================", flush=True)
     print(f"Analyzing {img_id}...", flush=True)
@@ -490,12 +498,15 @@ def analyze_img(
             _save_morse_vis(result.graphs[tuned_str], vis_dir, tuned_str, result.original_image,
                             result.dsamp_res)
         print("\nComputing branch statistics...", flush=True)
-        append_csv_row(output_dir, tuned_str, [img_id, *stats], created_csv_files)
+        if row_sink is not None:
+            row_sink(tuned_str, [img_id, *stats])
+        else:
+            append_csv_row(output_dir, tuned_str, [img_id, *stats], created_csv_files)
 
 
 def main(args=None, argv=None, device: DeviceLike = None):
     """The branches CLI. ``device=None`` means CUDA."""
-    dev = resolve_device(device)
+    maybe_initialize_from_env()
     default_config_path = str(defs.default_config_path(DEFAULT_CONFIG_NAME))
 
     if args is None:
@@ -503,6 +514,7 @@ def main(args=None, argv=None, device: DeviceLike = None):
         config = load_tool_config(args.config, Path(default_config_path))
     else:
         config = {}
+    dev = resolve_device(device)
 
     args_dict = vars(args)
     config = merge_cli_overrides(
@@ -556,13 +568,48 @@ def main(args=None, argv=None, device: DeviceLike = None):
     created_csv_files: set = set()
 
     section_header("Performing Analysis")
-    for img_id, img_files in img_paths.items():
-        analyze_img(img_id, img_files, model, output_dir, config, created_csv_files,
-                    use_well_mask=args.detect_well, device=dev)
+    # each process analyses its stripe and writes its PNGs; with more than
+    # one process the rows go to the primary, which appends them in
+    # discovery order (each to its sweep tag's CSV)
+    su.check_striped_discovery(list(img_paths))
+    multi = is_multiprocess()
+    gathered_rows: list = []
+    stripe_error = None
+    for gidx, (img_id, img_files) in stripe(enumerate(img_paths.items())):
+        sink = None
+        if multi:
+            sink = lambda tag, fields, g=gidx: gathered_rows.append((g, tag, fields))  # noqa: E731
+        try:
+            analyze_img(img_id, img_files, model, output_dir, config, created_csv_files,
+                        use_well_mask=args.detect_well, device=dev, row_sink=sink)
+        except SystemExit as e:
+            if not multi:
+                raise
+            # fail together after the row gather: exiting alone would leave
+            # the peers waiting in it
+            stripe_error = f"process {process_index()}: analyzing {img_id} exited with code {e.code}"
+            break
+        except Exception as e:  # an unreadable file, missing metadata, ...
+            if not multi:
+                raise
+            traceback.print_exc()
+            stripe_error = f"process {process_index()}: {img_id}: {e}"
+            break
 
-    cfg_path = tio.get_unique_output_filepath(output_dir / "config.json")
-    with open(cfg_path, "w", encoding="utf8") as f:
-        json.dump({k: v for k, v in config.items() if v is not None}, f, indent=4)
+    if multi:
+        merged, errors = merge_striped_rows(gathered_rows, stripe_error)
+        if errors:
+            for e in errors:
+                print(f"{SFM.failure} {e}", flush=True)
+            sys.exit(1)
+        if is_primary():
+            for _, tuned_str, fields in merged:
+                append_csv_row(output_dir, tuned_str, fields, created_csv_files)
+
+    if is_primary():
+        cfg_path = tio.get_unique_output_filepath(output_dir / "config.json")
+        with open(cfg_path, "w", encoding="utf8") as f:
+            json.dump({k: v for k, v in config.items() if v is not None}, f, indent=4)
 
     print(f"{SFM.success} Analysis complete.", flush=True)
     section_footer()

@@ -6,8 +6,11 @@ max-projected, every image is downsampled to ``dsamp_size``, rescaled to
 2-component GMM and written as ``thresholded/{id}_thresholded.png``
 (``{id}_well_mask.png`` with ``-w``), the covered fraction going to
 ``calculations/cell_area.csv`` (image_id, area_pct). Same flags, prints,
-file names and exit codes; single process. The device work is
-``analyze_images``, which takes and returns arrays and touches no file.
+file names and exit codes. Under torchrun each process analyses a
+round-robin stripe of the images and writes their PNGs; the primary
+writes the CSV from every process's rows (``parallel/distributed.py``).
+The device work is ``analyze_images``, which takes and returns arrays and
+touches no file.
 
 Usage:
     python -m tmat_torch.tools.compute_cell_area IN_DIR OUT_DIR [-w] [--sd-coef X]
@@ -31,6 +34,9 @@ from tmat_torch.ops.rescale import rescale_intensity
 from tmat_torch.ops.resize import downsample_max_dim_shape, resize
 from tmat_torch.ops.threshold import exec_threshold_batch
 from tmat_torch.ops.wellmask import generate_well_mask
+from tmat_torch.parallel.distributed import (
+    is_multiprocess, is_primary, maybe_initialize_from_env, merge_striped_rows, process_index, stripe,
+    sync_processes)
 from tmat_torch.tools import args as su
 
 THRESH_SUBDIR = "thresholded"
@@ -111,15 +117,19 @@ def analyze_images(imgs: Sequence[np.ndarray], sd_coef: float, detect_well: bool
 def main(args=None, argv=None, device: DeviceLike = None):
     """Computes cell area and saves to output directory.
     ``device=None`` means CUDA."""
-    dev = resolve_device(device)
+    maybe_initialize_from_env()
     default_config_path = str(defs.default_config_path(DEFAULT_CONFIG_NAME))
     if args is None:
         args = su.parse_cell_area_args({"default_config_path": default_config_path}, argv)
         args_prespecified = False
     else:
         args_prespecified = True
+    dev = resolve_device(device)
 
     all_img_paths = su.cell_area_verify_input_dir(args.in_root)
+    # every process lists the input before any creates the output's subdirs:
+    # the zproj --area chain reads and writes the same directory
+    sync_processes("cell_area input discovered")
 
     try:
         su.verify_output_dir(args.out_root, [THRESH_SUBDIR, CALC_SUBDIR])
@@ -148,8 +158,13 @@ def main(args=None, argv=None, device: DeviceLike = None):
     rs_seed = config.get("rs_seed", 0)
     rs_seed = 0 if rs_seed in (None, "None") else int(rs_seed)
 
-    img_ids = list(all_img_paths)
-    img_path_list = list(all_img_paths.values())
+    # each process analyses its stripe and writes its PNGs; the primary
+    # writes the CSV from every process's rows, in discovery order
+    su.check_striped_discovery(list(all_img_paths))
+    indexed_items = stripe(enumerate(all_img_paths.items()))
+    global_idxs = [i for i, _ in indexed_items]
+    img_ids = [k for _, (k, _) in indexed_items]
+    img_path_list = [v for _, (_, v) in indexed_items]
 
     if img_path_list:
         test_img_path = np.atleast_1d(img_path_list[0])[0]
@@ -163,6 +178,7 @@ def main(args=None, argv=None, device: DeviceLike = None):
     area_prop = []
     gmm_thresh_all = []
     all_well_masks = []
+    stripe_error = None
     for start in range(0, len(img_path_list), batch_size):
         try:
             imgs = [
@@ -171,6 +187,11 @@ def main(args=None, argv=None, device: DeviceLike = None):
             ]
         except OSError as error:
             print(f"{SFM.failure}{error}", flush=True)
+            if is_multiprocess():
+                # fail together after the row gather: exiting alone would
+                # leave the peers waiting in it
+                stripe_error = f"process {process_index()}: {error}"
+                break
             sys.exit(1)
         thresholded, well_masks, areas = analyze_images(imgs, sd_coef, detect_well, rs_seed, dev)
         gmm_thresh_all.extend(thresholded)
@@ -183,6 +204,8 @@ def main(args=None, argv=None, device: DeviceLike = None):
 
     section_header("Saving Results...")
     clean_ids = [i.replace("/", "_").replace("\\", "_") for i in img_ids]
+    # after a caught failure, the images analysed before it
+    clean_ids = clean_ids[: len(gmm_thresh_all)]
     for i, img_id in enumerate(clean_ids):
         if detect_well:
             file = os.path.join(args.out_root, THRESH_SUBDIR, f"{img_id}_well_mask.png")
@@ -190,15 +213,22 @@ def main(args=None, argv=None, device: DeviceLike = None):
         file = os.path.join(args.out_root, THRESH_SUBDIR, f"{img_id}_thresholded.png")
         tio.save_image(tio.get_unique_output_filepath(file), gmm_thresh_all[i])
 
-    area_out_path = os.path.join(args.out_root, CALC_SUBDIR, "cell_area.csv")
-    area_out_path = tio.get_unique_output_filepath(area_out_path)
-    with open(area_out_path, "w", newline="") as f:
-        writer = csv.writer(f)
-        writer.writerow(["image_id", "area_pct"])
-        for img_id, prop in zip(clean_ids, area_prop):
-            writer.writerow([img_id, np.float64(prop) * 100])
-
-    print(f"... Area calculations saved to:{os.linesep}\t{area_out_path}", flush=True)
+    rows = [(gi, img_id, np.float64(prop) * 100)
+            for gi, img_id, prop in zip(global_idxs, clean_ids, area_prop)]
+    merged, errors = merge_striped_rows(rows, stripe_error)
+    if errors:
+        for e in errors:
+            print(f"{SFM.failure} {e}", flush=True)
+        sys.exit(1)
+    if is_primary():
+        area_out_path = os.path.join(args.out_root, CALC_SUBDIR, "cell_area.csv")
+        area_out_path = tio.get_unique_output_filepath(area_out_path)
+        with open(area_out_path, "w", newline="") as f:
+            writer = csv.writer(f)
+            writer.writerow(["image_id", "area_pct"])
+            for _, img_id, pct in merged:
+                writer.writerow([img_id, pct])
+        print(f"... Area calculations saved to:{os.linesep}\t{area_out_path}", flush=True)
     print(SFM.success, flush=True)
     print(END_SEPARATOR, flush=True)
 

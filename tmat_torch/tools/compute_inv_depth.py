@@ -5,7 +5,9 @@ ResNet50 classifiers predicts, for every Z slice of each stack, the
 probability of invasion; the members' mean, rounded to 4 decimals, is
 thresholded at ``cls_thresh``. Same flags, prints, exit codes and CSV
 (``invasion_depth_predictions.csv``: Z Slice ID / Invasion Probability /
-Invasion Prediction (0=no 1=yes)); single process.
+Invasion Prediction (0=no 1=yes)). Under torchrun each process predicts a
+round-robin stripe of the stacks and the primary writes the CSV from
+every process's rows (``parallel/distributed.py``).
 
 Each stack's slices are resized on the host (``models/preprocess.py::
 host_resize``) and the rest runs on the device: the prep tail and the
@@ -39,6 +41,8 @@ from tmat_torch.device import DeviceLike, default_dtype, resolve_device
 from tmat_torch.models.params_io import from_flax_resnet_variables, load_variables
 from tmat_torch.models.preprocess import host_resize, prep_tail
 from tmat_torch.models.resnet import ResNet50TL, build_resnet50_tl, ensemble_forward, load_member
+from tmat_torch.parallel.distributed import (
+    is_multiprocess, is_primary, maybe_initialize_from_env, merge_striped_rows, process_index, stripe)
 from tmat_torch.tools import args as su
 
 DEFAULT_CONFIG_NAME = "default_invasion_depth_computation.json"
@@ -147,10 +151,11 @@ def predict_rows(stacks: Iterable[Tuple[str, np.ndarray]], ensemble: Sequence[Re
 def main(args=None, argv=None, device: DeviceLike = None):
     """Predicts invasion for every Z slice and writes the CSV.
     ``device=None`` means CUDA."""
-    dev = resolve_device(device)
+    maybe_initialize_from_env()
     default_config_path = str(defs.default_config_path(DEFAULT_CONFIG_NAME))
     if args is None:
         args = su.parse_inv_depth_args({"default_config_path": default_config_path}, argv)
+    dev = resolve_device(device)
 
     su.check_input_dir_structure(args.in_root)
 
@@ -218,26 +223,46 @@ def main(args=None, argv=None, device: DeviceLike = None):
         print(f"{SFM.failure} No Z stacks found in {args.in_root}", flush=True)
         sys.exit(1)
 
+    # each process predicts its stripe; the primary writes every process's
+    # rows in discovery order
+    su.check_striped_discovery(list(zstack_paths))
+    row_owners: List[int] = []  # the global index of each row's stack
+    stripe_error = None
+
     def load_stacks():
-        for zstack_id, zstack_path in zstack_paths.items():
+        nonlocal stripe_error
+        for gidx, (zstack_id, zstack_path) in stripe(enumerate(zstack_paths.items())):
             print(f"Processing {zstack_id}...", flush=True)
             try:
                 img, _ = tio.load_image(zstack_path, args.time, args.channel)
             except OSError as error:
                 print(f"{SFM.failure}{error}", flush=True)
+                if is_multiprocess():
+                    # fail together after the row gather: exiting alone
+                    # would leave the peers waiting in it
+                    stripe_error = f"process {process_index()}: {error}"
+                    return
                 sys.exit(1)
-            yield zstack_id, np.asarray(img)
+            img = np.asarray(img)
+            row_owners.extend([gidx] * (1 if img.ndim == 2 else len(img)))
+            yield zstack_id, img
 
     rows = predict_rows(load_stacks(), ensemble, resnet_inp_shape[:-1], cls_thresh)
+    merged, errors = merge_striped_rows(list(zip(row_owners, rows)), stripe_error)
+    if errors:
+        for e in errors:
+            print(f"{SFM.failure} {e}", flush=True)
+        sys.exit(1)
 
-    print("Saving results...", flush=True)
-    out_csv_path = os.path.join(args.out_root, "invasion_depth_predictions.csv")
-    out_csv_path = tio.get_unique_output_filepath(out_csv_path)
-    with open(out_csv_path, "w", newline="") as f:
-        writer = csv.DictWriter(f, fieldnames=[ID_COL, PROB_COL, PRED_COL])
-        writer.writeheader()
-        writer.writerows(rows)
-    print("... Results saved.", flush=True)
+    if is_primary():
+        print("Saving results...", flush=True)
+        out_csv_path = os.path.join(args.out_root, "invasion_depth_predictions.csv")
+        out_csv_path = tio.get_unique_output_filepath(out_csv_path)
+        with open(out_csv_path, "w", newline="") as f:
+            writer = csv.DictWriter(f, fieldnames=[ID_COL, PROB_COL, PRED_COL])
+            writer.writeheader()
+            writer.writerows(row for _, row in merged)
+        print("... Results saved.", flush=True)
     print(SFM.success, flush=True)
     section_footer()
 

@@ -4,7 +4,7 @@
 
 Builds ``csrc/down_block.cu`` with ``-DTMAT_DOWN_BLOCK_PROBE`` (thread 0 of
 each CTA adds the clock64 cycles between its marks to one counter per
-stage) into ``_build/libdown_block_probe.so``, runs each production block
+stage) into a library of its own in the build cache, runs each production block
 (patch 320, filters 64-512) once in bf16, and prints one JSON line per
 block: the cycles per CTA and each phase's share, with the probe build's
 CUDA-event time. With ``--steps`` the build also defines
@@ -45,7 +45,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("down_block_probe: needs a CUDA device")
     defines = ["TMAT_DOWN_BLOCK_PROBE"] + (["TMAT_DOWN_BLOCK_STEP_PROBE"] if args.steps else [])
-    lib = ctypes.CDLL(str(build.cuda_library("down_block", defines, "step_probe" if args.steps else "probe")))
+    lib = ctypes.CDLL(str(build.cuda_library("down_block", defines)))
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.tmat_down_block.restype = i
     lib.tmat_down_block.argtypes = [vp] * 10 + [i] * 7 + [vp]

@@ -12,7 +12,12 @@ stage 1 analyses: the area is then a fraction of the well, the segmentor
 sees the well only, and a shrunken mask prunes branches at the well's
 edge. Device work is issued under one lock onto the current stream.
 
-Not ported yet: the multi-process mode.
+Under torchrun each process runs a round-robin stripe of the wells, and
+the primary writes the CSV from every process's per-well rows, in the
+plate's well order (``parallel/distributed.py``). Where the JAX package
+shards each chunk over a mesh spanning the processes, the port's
+processes share nothing but these rows; nothing a well computes depends
+on the wells beside it, so the CSV is the one process's.
 
 Usage:
     python -m tmat_torch.tools.plate_pipeline IN_DIR OUT_DIR \
@@ -27,6 +32,7 @@ import queue as queue_mod
 import sys
 import threading
 import time
+import traceback
 from collections import deque
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait as futures_wait
 from pathlib import Path
@@ -43,11 +49,16 @@ from tmat_torch.models.unet import get_unet_patch_segmentor_from_cfg
 from tmat_torch.ops.resize import resize
 from tmat_torch.ops.wellmask import make_well_mask
 from tmat_torch.ops.zproj import PROJ_METHODS, proj_host
+from tmat_torch.parallel.distributed import (
+    gather_objects, is_multiprocess, is_primary, maybe_initialize_from_env, merge_striped_rows,
+    process_index, stripe)
 from tmat_torch.parallel.plate import plate_stage1, plate_stage2, plate_zproj_masked
 from tmat_torch.topo.morse_native import morse_stats_native
 from tmat_torch.topo.transforms import filter_branch_seg_mask
 
 DOWNSAMPLE_WIDTH = 384
+RESULT_KEYS = ("well_id", "area_pct", "total_branches", "total_branch_length_um",
+               "avg_branch_length_um")
 
 
 def _analyze_well_graph(pred384: np.ndarray, config: dict, width_px: int, pruning_mask=None):
@@ -285,6 +296,16 @@ def run_plate_streaming(
     return results
 
 
+def merge_plate_results(results: Dict[str, list], global_idxs: Sequence[int],
+                        error: Optional[str] = None):
+    """Every process's per-well ``results`` (of the wells at ``global_idxs``
+    of the plate) in the plate's well order, on every process, and every
+    error a process caught: ``(results, errors)``. One process: its own."""
+    rows = [(g, *vals) for g, vals in zip(global_idxs, zip(*(results[k] for k in RESULT_KEYS)))]
+    merged, errors = merge_striped_rows(rows, error)
+    return {k: [r[i + 1] for r in merged] for i, k in enumerate(RESULT_KEYS)}, errors
+
+
 _PIL_MODE_DTYPES = {
     "L": np.uint8, "P": np.uint8, "RGB": np.uint8, "RGBA": np.uint8,
     "I;16": np.uint16, "I;16B": np.uint16, "I": np.int32, "F": np.float32,
@@ -367,6 +388,7 @@ _MIXED_SIZE_HELP = (
 
 def main(args=None, argv=None, device: DeviceLike = None):
     """The plate CLI. ``device=None`` means CUDA."""
+    maybe_initialize_from_env()
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("in_root", type=str)
     p.add_argument("out_root", type=str)
@@ -407,7 +429,13 @@ def main(args=None, argv=None, device: DeviceLike = None):
     su.verify_output_dir(args.out_root)
 
     section_header("Loading plate")
-    well_ids = list(img_paths)
+    # each process runs its stripe of the wells; the geometry is probed on
+    # every well, so every process pads as one process would
+    su.check_striped_discovery(list(img_paths))
+    indexed = stripe(enumerate(img_paths.items()))
+    global_idxs = [i for i, _ in indexed]
+    my_paths = {wid: files for _, (wid, files) in indexed}
+    well_ids = list(my_paths)
     try:
         plate_zhw = _probe_plate_geometry(img_paths)
     except ValueError as e:
@@ -429,42 +457,64 @@ def main(args=None, argv=None, device: DeviceLike = None):
     start = time.perf_counter()
     common = dict(sd_coef=args.sd_coef, detect_well=args.detect_well, proj_method=args.method,
                   device=dev)
-    if plate_zhw is not None:
-        results = run_plate_streaming(
-            _well_loader(img_paths), len(well_ids), plate_zhw[:3], segmentor, config,
-            plate_dtype=plate_zhw[3], **common,
-        )
-    else:
-        # buffered: decode everything, pad to the plate's depth
+    if plate_zhw is None:
+        # buffered: decode this process's wells, and pad them to the
+        # geometry and type of the whole plate, as one process would
         stacks = []
         for wid in well_ids:
-            img, _ = tio.load_image(img_paths[wid])
+            img, _ = tio.load_image(my_paths[wid])
             stacks.append(img[None] if img.ndim == 2 else img)
-        hw_set = {(s.shape[1], s.shape[2]) for s in stacks}
+        parts = gather_objects([(s.shape, s.dtype.str) for s in stacks])
+        shapes = [shape for part in parts for shape, _ in part]
+        hw_set = {shape[1:] for shape in shapes}
         if len(hw_set) > 1:
             print(f"{SFM.failure} wells differ in spatial size: {sorted(hw_set)}. "
                   f"{_MIXED_SIZE_HELP}", flush=True)
             sys.exit(1)
-        max_z = max(s.shape[0] for s in stacks)
-        (h, w), = hw_set
-        plate = np.zeros((len(stacks), max_z, h, w), np.result_type(*[s.dtype for s in stacks]))
-        for i, s in enumerate(stacks):
-            plate[i, : s.shape[0]] = s
-        results = run_plate(plate, well_ids, segmentor, config,
-                            z_counts=[s.shape[0] for s in stacks], **common)
+    stripe_error = None
+    try:
+        if plate_zhw is not None:
+            results = run_plate_streaming(
+                _well_loader(my_paths), len(well_ids), plate_zhw[:3], segmentor, config,
+                plate_dtype=plate_zhw[3], **common,
+            )
+        else:
+            (h, w), = hw_set
+            max_z = max(shape[0] for shape in shapes)
+            dtype = np.result_type(*[np.dtype(d) for part in parts for _, d in part])
+            plate = np.zeros((len(stacks), max_z, h, w), dtype)
+            for i, s in enumerate(stacks):
+                plate[i, : s.shape[0]] = s
+            results = run_plate(plate, well_ids, segmentor, config,
+                                z_counts=[s.shape[0] for s in stacks], **common)
+    except Exception as e:  # a well that does not decode, ...
+        if not is_multiprocess():
+            raise
+        # fail together after the row gather: raising alone would leave the
+        # peers waiting in it
+        traceback.print_exc()
+        stripe_error = f"process {process_index()}: {e}"
+        results = {k: [] for k in RESULT_KEYS}
     elapsed = time.perf_counter() - start
-    timer = results.pop("_timer")
-    print(timer.report(), flush=True)
+    timer = results.pop("_timer", None)
+    if timer is not None:
+        print(timer.report(), flush=True)
     print(f"{SFM.success} {len(well_ids)} wells in {elapsed:.1f}s "
           f"({len(well_ids) / elapsed:.2f} wells/sec)", flush=True)
 
-    out_csv = Path(args.out_root) / "plate_results.csv"
-    with open(out_csv, "w", newline="") as f:
-        writer = csv.writer(f)
-        writer.writerow(list(results))
-        for row in zip(*results.values()):
-            writer.writerow(row)
-    print(f"Results saved to {out_csv}", flush=True)
+    results, errors = merge_plate_results(results, global_idxs, stripe_error)
+    if errors:
+        for e in errors:
+            print(f"{SFM.failure} {e}", flush=True)
+        sys.exit(1)
+    if is_primary():
+        out_csv = Path(args.out_root) / "plate_results.csv"
+        with open(out_csv, "w", newline="") as f:
+            writer = csv.writer(f)
+            writer.writerow(list(results))
+            for row in zip(*results.values()):
+                writer.writerow(row)
+        print(f"Results saved to {out_csv}", flush=True)
     section_footer()
 
 
