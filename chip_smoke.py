@@ -61,12 +61,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``process_plate`` on eight wells, all as ND2 files, each by one process
    and by two on this card (``parallel/validation.py::
    run_coordinated_workers``): CSVs byte-equal, items per second of both,
-   the host's cores and BLAS.
+   the host's cores and BLAS;
+16. train: ``train_segmentation.main`` on 96 synthetic 320^2 pairs (3 epochs,
+   every other flag at its default: filters 64-512, batch 16, f32), then
+   its step alone on one batch (CUDA events), an epoch split into the
+   host's augmented batches and the card's steps, and a save/load/step
+   resume check; ``train_invasion.main`` on 48 256^2 slices a class (one
+   member, one frozen and one fine-tune epoch, the shipped JSONs), the
+   frozen and fine-tune steps alone, the frozen base byte-equal, the
+   float16 member through ``compute_inv_depth``'s ensemble path; the
+   registered segmentor (bf16) through ``eval_segmentation.evaluate`` on
+   two 1024^2 images, its probability maps against the plain path (bf16
+   and f32); one small UNet step on the card against the CPU.
 
 Phase 4 also holds the bf16 kernel path's mask against an f32 forward of
 the plain path. The launch counts of phases 5, 8, 9, 10, 13 and 15 go into
-the kernels line; phases 11 and 12 and the inv_depth runs of 15 launch
-neither kernel. The last line is {"ok": true, "device": {...}}.
+the kernels line, and so do the trained segmentor's of phase 16; phases 11
+and 12, the inv_depth runs of 15 and the training steps launch neither
+kernel (the JAX package trains through plain Flax layers, with no custom
+gradient). The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -81,6 +94,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -111,6 +125,12 @@ FOCUS_CASES = [
 PLATE_FS_Z_COUNTS = (8, 8, 6, 8, 5, 8, 8, 7)
 INV_STACKS = 8  # uint8 (8, 1024, 1024) stacks of the inv_depth phase
 INV_TOL = 0.02  # bf16 against f32 probabilities, and the margin around cls_thresh
+TRAIN_SEG_PAIRS = 96  # 320^2 synthetic image/mask pairs of the train phase
+TRAIN_INV_PER_CLASS = 48  # 256^2 synthetic slices per class
+TRAIN_EVAL_SIZE = 1024  # the trained segmentor's two synthetic images
+# the trained segmentor's probability maps: the bf16 kernel path against the
+# bf16 plain path, and against the float32 plain path
+TRAIN_PROB_TOL = {"kernel_vs_plain": 0.02, "bf16_vs_f32": 0.05}
 
 
 _START = time.perf_counter()
@@ -1118,6 +1138,295 @@ def phase_profile(seg, n_wells: int, rng, device, tmp: Path):
     return launches
 
 
+@contextmanager
+def tf32(conv: bool, matmul: bool):
+    """cuDNN's and cuBLAS's TF32 flags for a block, restored after it."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, matmul
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def assert_grads(port: dict, ref: dict, what: str) -> float:
+    """Each leaf's gradient within 1e-4 of its largest |g|, floored at 1e-2
+    of the model's largest (a bias in front of a BatchNorm has only rounding
+    noise); returns the worst error in those units."""
+    gmax = max(g.abs().max().item() for g in ref.values())
+    worst = 0.0
+    for k, g in ref.items():
+        err = (port[k].cpu() - g.cpu()).abs().max().item()
+        worst = max(worst, err / (1e-4 * max(g.abs().max().item(), 1e-2 * gmax)))
+    if worst > 1:
+        raise AssertionError(f"{what}: a gradient differs by {worst} of its tolerance")
+    return worst
+
+
+def _train_segmentation(tmp: Path, device) -> tuple:
+    """The segmentation trainer at its defaults, then its step alone, an
+    epoch split into host and card, and resume. Returns (config, fields)."""
+    from tmat_torch.models import train as T, train_segmentation as TS
+    from tmat_torch.models.synthetic import generate_dataset
+    from tmat_torch.models.unet import build_unet_xception
+
+    seg_dir = tmp / "train_seg"
+    t0 = time.perf_counter()
+    generate_dataset(seg_dir, n=TRAIN_SEG_PAIRS, size=320, seed=0)
+    data_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg_path = TS.main([str(seg_dir), "--epochs", "3", "--warmup-steps", "4"], device=device)
+    main_s, main_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+    # the step alone on one fixed batch on the card, warmed
+    args = TS.parse_args([str(seg_dir)])
+    train_seq, _ = TS.make_sequences(args, np.random.RandomState(args.seed))
+    module = build_unet_xception(1, (args.patch_size, args.patch_size), filter_counts=tuple(args.filters),
+                                 bn_momentum=args.bn_momentum, device=device)
+    tx = T.adamw(TS.make_schedule(args, len(train_seq)))
+    state, step = T.init_train_state(module, tx), T.make_unet_train_step(tx)
+    batch = [torch.from_numpy(a).to(device) for a in train_seq[0]]
+    for _ in range(3):
+        step(state, *batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: step(state, *batch), 10)
+    step_peak = torch.cuda.max_memory_allocated()
+    # one epoch: the host's augmented batches against the card's steps
+    host_s = card_s = 0.0
+    for i in range(len(train_seq)):
+        t0 = time.perf_counter()
+        b = train_seq[i]
+        t1 = time.perf_counter()
+        _, metrics = step(state, *b)
+        torch.cuda.synchronize()
+        host_s, card_s = host_s + t1 - t0, card_s + time.perf_counter() - t1
+
+    # resume: byte-equal tensors and step; one further step from each
+    path = tmp / "train_state.msgpack"
+    T.save_train_state(path, state)
+    restored = T.load_train_state(path, T.init_train_state(build_unet_xception(
+        1, (args.patch_size, args.patch_size), filter_counts=tuple(args.filters),
+        bn_momentum=args.bn_momentum, seed=1, device=device), tx))
+    pairs = list(zip(state.module.state_dict().values(), restored.module.state_dict().values()))
+    for pa, pb in zip(state.module.parameters(), restored.module.parameters()):
+        pairs += [(state.opt.state[pa][k], restored.opt.state[pb][k]) for k in ("exp_avg", "exp_avg_sq", "step")]
+    if restored.step != state.step or not all(torch.equal(a, b) for a, b in pairs):
+        raise AssertionError("a resumed train state differs from the saved one")
+    _, ma = step(state, *batch)
+    _, mb = step(restored, *batch)
+    loss_a, loss_b = ma["loss"].item(), mb["loss"].item()
+    lr = max(tx.lr(i) for i in range(state.step))
+    param_diff = max((a - b).abs().max().item() for a, b in zip(state.module.parameters(),
+                                                                restored.module.parameters()))
+    if not (abs(loss_a - loss_b) <= 1e-6 * loss_a and param_diff <= 2 * lr):
+        raise AssertionError(f"resumed step: losses {loss_a} / {loss_b}, weights {param_diff} apart "
+                             f"(tol 2 x lr = {2 * lr})")
+    n = args.batch_size
+    return cfg_path, {
+        "pairs": TRAIN_SEG_PAIRS, "patch": args.patch_size, "filters": args.filters, "batch": n,
+        "epochs": 3, "steps_per_epoch": len(train_seq), "data_gen_s": data_s, "main_s": main_s,
+        "main_peak_bytes": main_peak, "step_ms": step_ms, "images_per_sec": n / step_ms * 1e3,
+        "step_peak_bytes": step_peak, "epoch_host_batches_s": host_s, "epoch_card_steps_s": card_s,
+        "epoch_host_share": host_s / (host_s + card_s), "last_loss": metrics["loss"].item(),
+        "resume": {"checkpoint_bytes": path.stat().st_size, "step": restored.step,
+                   "loss_after": [loss_a, loss_b], "max_weight_diff_after": param_diff,
+                   "tol": 2 * lr},
+    }
+
+
+def _trained_segmentor(cfg_path: Path, tmp: Path, device) -> dict:
+    """The registered segmentor (bf16, down-block kernel) on two 1024^2
+    images, through ``eval_segmentation.evaluate``; its probability maps
+    against the plain path's, bf16 and float32 (TF32 off)."""
+    from tmat_torch.core.io import load_image, save_image
+    from tmat_torch.device import default_dtype
+    from tmat_torch.models import eval_segmentation as ev
+    from tmat_torch.models.synthetic import synth_vessel_image
+    from tmat_torch.models.unet import get_unet_patch_segmentor_from_cfg
+    from tmat_torch.ops import down_block as db
+
+    eval_dir = tmp / "train_eval"
+    eval_dir.mkdir()
+    rng = np.random.RandomState(7)
+    for i in range(2):  # the training contract: each image rescaled to [0, 1]
+        img, mask = synth_vessel_image(rng, TRAIN_EVAL_SIZE)
+        img = img.astype(np.float32)
+        save_image(eval_dir / f"e{i}.tif", (img - img.min()) / max(img.max() - img.min(), 1))
+        save_image(eval_dir / f"e{i}_mask.tif", mask)
+    seg = get_unet_patch_segmentor_from_cfg(str(cfg_path), device=device)
+    if seg.dtype != default_dtype(device):
+        raise AssertionError(f"the trained segmentor computes in {seg.dtype}")
+    forwards, model_fn, preds = [0], seg._pred_fn, {}
+
+    def counted(b):
+        forwards[0] += 1
+        return model_fn(b)
+
+    seg._pred_fn = counted
+    paths = ev.image_paths(str(eval_dir))
+    db.launches = 0  # the trained segmentor's path starts here
+    ious = ev.evaluate(seg, paths, on_image=lambda fp, img, pred, th, m: preds.__setitem__(fp, pred))
+    launches = db.launches  # ... and ends here
+    if launches != seg.model.n_down * forwards[0] or not forwards[0]:  # 3 at full width
+        raise AssertionError(f"{launches} kernel launches for {forwards[0]} UNet forwards")
+    seg._pred_fn = lambda b: seg.model(b, plain_down=True)
+    cfg = json.loads(cfg_path.read_text())
+    cfg.update(dtype="float32", checkpoint_file=str(cfg_path.parents[1] / "checkpoints" / cfg["checkpoint_file"]))
+    (tmp / "f32.json").write_text(json.dumps(cfg))
+    seg32 = get_unet_patch_segmentor_from_cfg(str(tmp / "f32.json"), device=device)
+    seg32._pred_fn = lambda b: seg32.model(b, plain_down=True)
+    diffs = {"kernel_vs_plain": [], "bf16_vs_f32": []}
+    with tf32(False, False):
+        for fp in paths:
+            img = load_image(fp)[0].astype(np.float32)
+            pred = preds[fp]
+            if not (np.isfinite(pred).all() and pred.shape == img.shape):
+                raise AssertionError("the trained segmentor's map is non-finite or misshapen")
+            diffs["kernel_vs_plain"].append(float(np.abs(pred - seg.predict(img)).max()))
+            diffs["bf16_vs_f32"].append(float(np.abs(pred - seg32.predict(img)).max()))
+    for k, tol in TRAIN_PROB_TOL.items():
+        if max(diffs[k]) > tol:
+            raise AssertionError(f"trained segmentor, {k}: probabilities {max(diffs[k])} apart (tol {tol})")
+    return {"images": 2, "size": TRAIN_EVAL_SIZE, "dtype": str(seg.dtype), "unet_forwards": forwards[0],
+            "launches": launches, "iou_at_0_5": ious, "prob_max_abs_diff": diffs, "tol": TRAIN_PROB_TOL,
+            "prob_range": [float(min(p.min() for p in preds.values())),
+                           float(max(p.max() for p in preds.values()))]}
+
+
+def _card_vs_cpu_step(device) -> dict:
+    """One UNet step (filters 8-16, 64^2, batch 4) from the same weights and
+    batch on the card and the CPU, TF32 off: loss, BN statistics, gradients."""
+    from tmat_torch.models import train as T
+    from tmat_torch.models.layers import flax_variables, load_flax_variables
+    from tmat_torch.models.synthetic import synth_vessel_image
+    from tmat_torch.models.unet import build_unet_xception
+
+    rng = np.random.RandomState(3)
+    pairs = [synth_vessel_image(rng, 64) for _ in range(4)]
+    x = np.stack([(i - i.min()) / max(float(i.max() - i.min()), 1.0) for i, _ in pairs])[..., None]
+    y = np.stack([m > 0 for _, m in pairs])[..., None].astype(np.float32)
+    nets = {"cpu": build_unet_xception(1, (64, 64), filter_counts=(8, 16), bn_momentum=0.9, seed=3,
+                                       device="cpu")}
+    nets["card"] = load_flax_variables(build_unet_xception(1, (64, 64), filter_counts=(8, 16),
+                                                           bn_momentum=0.9, device=device),
+                                       flax_variables(nets["cpu"]))
+    out = {}
+    with tf32(False, False):
+        for where, net in nets.items():
+            tx = T.adamw(1e-3)
+            _, m = T.make_unet_train_step(tx)(T.init_train_state(net, tx), x.astype(np.float32), y)
+            out[where] = (m["loss"].item(), {k: p.grad.detach().cpu() for k, p in net.named_parameters()},
+                          flax_variables(net)["batch_stats"])
+    (loss_cpu, g_cpu, s_cpu), (loss_card, g_card, s_card) = out["cpu"], out["card"]
+    if abs(loss_card - loss_cpu) > 1e-5 * loss_cpu:
+        raise AssertionError(f"card vs CPU step: losses {loss_card} / {loss_cpu}")
+    stats_diff = max(float(np.abs(s_card[k][leaf] - s_cpu[k][leaf]).max()) for k in s_cpu for leaf in s_cpu[k])
+    if stats_diff > 1e-6:
+        raise AssertionError(f"card vs CPU step: BN statistics {stats_diff} apart")
+    worst = assert_grads(g_card, g_cpu, "card vs CPU step")
+    return {"loss": [loss_card, loss_cpu], "bn_stats_max_abs_diff": stats_diff,
+            "grad_err_of_tol": worst}
+
+
+def _train_invasion(tmp: Path, device) -> dict:
+    """The invasion trainer from the shipped JSONs (one member, one frozen
+    and one fine-tune epoch), the frozen and fine-tune steps alone, the
+    frozen base byte-equal, and the written member through the tool's path."""
+    from glob import glob
+
+    from tmat_torch.models import train as T, train_invasion
+    from tmat_torch.models.augment import augment_invasion_imgs
+    from tmat_torch.models.data import InvasionDataGenerator
+    from tmat_torch.models.resnet import build_trainable_resnet50_tl
+    from tmat_torch.models.synthetic import generate_invasion_dataset
+    from tmat_torch.tools import compute_inv_depth as inv
+
+    root = Path(__file__).resolve().parent
+    hp = json.loads((root / "model_training" / "invasion_depth_best_hp.json").read_text())
+    tv = json.loads((root / "model_training" / "invasion_depth_training_values.json").read_text())
+    inv_dir = tmp / "train_inv"
+    t0 = time.perf_counter()
+    generate_invasion_dataset(inv_dir, n_per_class=TRAIN_INV_PER_CLASS, size=256, seed=0)
+    data_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out_dir = train_invasion.main([str(inv_dir), "--n-models", "1", "--frozen-epochs", "1",
+                                   "--fine-tune-epochs", "1"], device=device)
+    main_s, main_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+    hw = tuple(tv["resnet_inp_shape"][:2])
+    paths = {label: sorted(glob(str(inv_dir / name / "*"))) for name, label in tv["class_labels"].items()}
+    gen = InvasionDataGenerator(paths, tv["class_labels"], tv["batch_size"], hw, np.random.RandomState(0),
+                                class_weights=True, augmentation_function=augment_invasion_imgs,
+                                device=device)
+    module = build_trainable_resnet50_tl(1, (*hw, 3), hp["last_resnet_layer"], seed=0, device=device)
+    base0 = {k: t.clone() for k, t in module.state_dict().items() if k.startswith("base_model.")}
+    frozen_tx = T.make_tl_optimizer(hp["frozen_lr"], hp["adam_beta_1"], hp["adam_beta_2"], False)
+    state, fstep = T.init_train_state(module, frozen_tx), T.make_classifier_train_step(frozen_tx)
+    for b in gen:  # a frozen epoch
+        fstep(state, *b)
+    x, y, w = gen[0]
+    y, w = torch.from_numpy(y).to(device), torch.from_numpy(w).to(device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    frozen_ms = cuda_ms(lambda: fstep(state, x, y, w), 10)
+    frozen_peak = torch.cuda.max_memory_allocated()
+    changed = [k for k, t in base0.items() if not torch.equal(module.state_dict()[k], t)]
+    if changed:
+        raise AssertionError(f"the frozen stage moved {len(changed)} base tensors, e.g. {changed[:3]}")
+    ft_tx = T.make_tl_optimizer(hp["fine_tune_lr"], hp["adam_beta_1"], hp["adam_beta_2"], True)
+    state, ftstep = T.init_train_state(module, ft_tx), T.make_classifier_train_step(ft_tx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ft_ms = cuda_ms(lambda: ftstep(state, x, y, w), 10)
+    ft_peak = torch.cuda.max_memory_allocated()
+
+    ckpt = out_dir / "best_finetune_weights_0.msgpack"
+    if b"float16" not in ckpt.read_bytes() or not (out_dir / "best_model_history_0.csv").is_file():
+        raise AssertionError("the trained member is not a float16 checkpoint beside its history")
+    ens = inv.load_ensemble([ckpt], tuple(tv["resnet_inp_shape"]), hp["last_resnet_layer"], device=device)
+    probs = inv.predict_stack(invasion_stacks(1)[0], ens, hw)
+    if not (probs.shape == (1, 8, 1) and np.isfinite(probs).all() and (probs >= 0).all() and (probs <= 1).all()):
+        raise AssertionError(f"the trained member's probabilities: {probs.ravel()}")
+    n = tv["batch_size"]
+    return {"per_class": TRAIN_INV_PER_CLASS, "size": 256, "input": list(tv["resnet_inp_shape"]),
+            "last_layer": hp["last_resnet_layer"], "batch": n, "steps_per_epoch": len(gen),
+            "data_gen_s": data_s, "main_s": main_s, "main_peak_bytes": main_peak,
+            "frozen_step_ms": frozen_ms, "frozen_images_per_sec": n / frozen_ms * 1e3,
+            "frozen_peak_bytes": frozen_peak, "fine_tune_step_ms": ft_ms,
+            "fine_tune_images_per_sec": n / ft_ms * 1e3, "fine_tune_peak_bytes": ft_peak,
+            "frozen_base_byte_equal": True, "member_bytes": ckpt.stat().st_size,
+            "member_probs": probs.ravel().tolist()}
+
+
+def phase_train(tmp: Path, device) -> int:
+    """Training at the shipped widths (models/train*.py), the trained
+    segmentor through the down-block kernel, resume, and the card against
+    the CPU. The trainers run with PyTorch's default TF32 flags (cuDNN on,
+    cuBLAS off); the comparisons with float32 references turn TF32 off.
+    Returns the segmentor's down-block launches."""
+    from tmat_torch.core import defs
+
+    saved = defs.MODEL_TRAINING_DIR
+    defs.MODEL_TRAINING_DIR = tmp / "model_training"  # where the trainers register
+    try:
+        with tf32(True, False):
+            cfg_path, seg = _train_segmentation(tmp, device)
+            emit("train_seg", **seg)
+            inv_fields = _train_invasion(tmp, device)
+            emit("train_inv", **inv_fields)
+        trained = _trained_segmentor(cfg_path, tmp, device)
+        emit("train_segmentor", **trained)
+        emit("train_card_vs_cpu", **_card_vs_cpu_step(device))
+    finally:
+        defs.MODEL_TRAINING_DIR = saved
+    return trained["launches"]
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--wells", type=int, default=8)
@@ -1176,6 +1485,7 @@ def run_phases(args, tmp: Path, device, kind: str, smi: str) -> int:
     dist_launches = phase_distributed(
         inv_stacks, synthetic_plate(args.wells, profile_rng),
         [well.max(axis=0) for well in synthetic_plate(args.wells, profile_rng)], tmp)
+    train_launches = phase_train(tmp, device)
 
     one_stack = focus_timings[0]  # (1, 8, 1024, 1024): what both paths launch
     kernels = [{
@@ -1184,11 +1494,11 @@ def run_phases(args, tmp: Path, device, kind: str, smi: str) -> int:
         "source": "tmat_torch/csrc/down_block.cu",
         "replaces": "tmat_tpu/ops/pallas_unet.py:245",
         "launches": (launches + fs_launches["down_block"] + branch_launches + profile_launches
-                     + sum(dist_launches.values())),
+                     + sum(dist_launches.values()) + train_launches),
         "launches_by_path": {"plate": launches, "plate_fs": fs_launches["down_block"],
                              "branches": branch_launches, "profile": profile_launches,
                              "distributed_branches_2d": dist_launches["branches_2d"],
-                             "distributed_plate": dist_launches["plate"]},
+                             "distributed_plate": dist_launches["plate"], "train": train_launches},
         "max_abs_err": max(e["max_abs_err"] for e in errors),
         # one UNet forward of 200 patches: the three production blocks
         "ms": sum(t["ms"] for t in timings),

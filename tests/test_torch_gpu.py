@@ -442,3 +442,106 @@ def test_predict_stack_on_the_card(cuda):
         out = inv.predict_stack(stack, card, (64, 64))
         assert out.dtype == np.float32 and out.shape == (1, 1 if stack.ndim == 2 else len(stack), 1)
         np.testing.assert_allclose(out, inv.predict_stack(stack, host, (64, 64)), atol=1e-4, rtol=0)
+
+
+def _grads_close(card, cpu):
+    """Each leaf within 1e-4 of its largest |g|, floored at 1e-2 of the
+    model's largest (a bias in front of a BatchNorm has only rounding noise)."""
+    gmax = max(g.abs().max().item() for g in cpu.values())
+    for k, g in cpu.items():
+        tol = 1e-4 * max(g.abs().max().item(), 1e-2 * gmax)
+        torch.testing.assert_close(card[k].cpu(), g, atol=tol, rtol=0, msg=k)
+
+
+def _seg_batch(n=4, hw=64):
+    rng = np.random.RandomState(3)
+    x = rng.rand(n, hw, hw, 1).astype(np.float32)
+    y = np.zeros_like(x)
+    y[:, hw // 4: 3 * hw // 4, hw // 3: hw // 2] = 1
+    return x, y
+
+
+@pytest.mark.gpu
+def test_unet_train_step_on_the_card_matches_the_cpu(cuda):
+    """One step of the trainable UNet from the same weights and batch:
+    loss 1e-5 relative, BN statistics 1e-6, gradients (TF32 off)."""
+    from tmat_torch.models import train as T
+    from tmat_torch.models.layers import flax_variables, load_flax_variables
+    from tmat_torch.models.unet import build_unet_xception
+
+    cpu = build_unet_xception(1, (64, 64), filter_counts=(8, 16, 32), bn_momentum=0.9, seed=2,
+                              device="cpu")
+    card = load_flax_variables(build_unet_xception(1, (64, 64), filter_counts=(8, 16, 32),
+                                                   bn_momentum=0.9, device=cuda), flax_variables(cpu))
+    x, y = _seg_batch()
+    out = {}
+    for name, net in (("cpu", cpu), ("card", card)):
+        tx = T.adamw(1e-3)
+        _, m = T.make_unet_train_step(tx)(T.init_train_state(net, tx), x, y)
+        out[name] = (m["loss"].item(), {k: p.grad.detach().cpu() for k, p in net.named_parameters()},
+                     flax_variables(net)["batch_stats"])
+    assert abs(out["card"][0] - out["cpu"][0]) <= 1e-5 * out["cpu"][0]
+    _grads_close(out["card"][1], out["cpu"][1])
+    for k, leaves in out["cpu"][2].items():
+        for leaf, a in leaves.items():
+            np.testing.assert_allclose(out["card"][2][k][leaf], a, atol=1e-6, rtol=0)
+
+
+@pytest.mark.gpu
+def test_train_state_resumes_on_the_card(cuda, tmp_path):
+    """save/load gives byte-equal tensors and step; the next step's loss is
+    equal and the weights stay within 2 x lr (cuDNN's backward is not
+    bit-deterministic)."""
+    from tmat_torch.models import train as T
+    from tmat_torch.models.unet import build_unet_xception
+
+    def fresh(seed):
+        tx = T.adamw(1e-3)
+        return T.init_train_state(build_unet_xception(1, (64, 64), filter_counts=(8, 16), seed=seed,
+                                                      device=cuda), tx)
+
+    step = T.make_unet_train_step(T.adamw(1e-3))
+    x, y = _seg_batch()
+    state = fresh(0)
+    for _ in range(3):
+        step(state, x, y)
+    T.save_train_state(tmp_path / "s.msgpack", state)
+    restored = T.load_train_state(tmp_path / "s.msgpack", fresh(1))
+    assert restored.step == state.step == 3
+    for a, b in zip(state.module.state_dict().values(), restored.module.state_dict().values()):
+        assert torch.equal(a, b)
+    _, ma = step(state, x, y)
+    _, mb = step(restored, x, y)
+    assert abs(ma["loss"].item() - mb["loss"].item()) <= 1e-6 * ma["loss"].item()
+    for a, b in zip(state.module.parameters(), restored.module.parameters()):
+        assert (a - b).abs().max().item() <= 2e-3
+
+
+@pytest.mark.gpu
+def test_frozen_resnet_step_on_the_card(cuda):
+    """The classifier's frozen stage on the card leaves the base bit-equal;
+    its fine-tune gradients match the CPU's (TF32 off)."""
+    from tmat_torch.models import train as T
+    from tmat_torch.models.layers import flax_variables, load_flax_variables
+    from tmat_torch.models.resnet import build_trainable_resnet50_tl
+
+    cpu = build_trainable_resnet50_tl(1, (32, 32, 3), "conv2_block3_out", seed=4, device="cpu")
+    with torch.no_grad():
+        cpu.head.kernel.copy_(torch.randn(256, 1, generator=torch.Generator().manual_seed(0)) * 0.01)
+    card = load_flax_variables(build_trainable_resnet50_tl(1, (32, 32, 3), "conv2_block3_out",
+                                                           device=cuda), flax_variables(cpu))
+    rng = np.random.RandomState(0)
+    x = (rng.randn(4, 32, 32, 3) * 10).astype(np.float32)
+    y = np.array([[0.0], [1.0], [1.0], [0.0]], np.float32)
+    base0 = {k: t.clone() for k, t in card.state_dict().items() if k.startswith("base_model.")}
+    tx = T.make_tl_optimizer(1e-2, base_trainable=False)
+    state = T.init_train_state(card, tx)
+    for _ in range(2):
+        T.make_classifier_train_step(tx)(state, x, y)
+    assert all(torch.equal(card.state_dict()[k], t) for k, t in base0.items())
+    grads = {}
+    for name, net in (("cpu", cpu), ("card", load_flax_variables(card, flax_variables(cpu)))):
+        ft = T.make_tl_optimizer(1e-4, base_trainable=True)
+        T.make_classifier_train_step(ft)(T.init_train_state(net, ft), x, y)
+        grads[name] = {k: p.grad.detach().cpu() for k, p in net.named_parameters()}
+    _grads_close(grads["card"], grads["cpu"])

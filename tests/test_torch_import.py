@@ -16,11 +16,15 @@ import pytest
 import torch
 
 PKG = Path(__file__).resolve().parents[1] / "tmat_torch"
+SHIPPED_CFG = PKG.parent / "model_training/binary_segmentation/configs/unet_patch_segmentor_1.json"
 MODULES = sorted(
     ".".join(p.relative_to(PKG.parent).with_suffix("").parts).removesuffix(".__init__")
     for p in PKG.rglob("*.py")
 )
-FORBIDDEN = ("jax", "flax", "triton", "msgpack", "networkx", "PIL", "cv2", "tmat_tpu")
+FORBIDDEN = ("jax", "flax", "triton", "msgpack", "networkx", "PIL", "cv2", "tmat_tpu", "h5py",
+             "matplotlib")
+# imported only inside the functions that need them (image files, .h5 weights, panels)
+LAZY = ("PIL", "h5py", "matplotlib")
 
 
 def test_modules_import_without_forbidden_packages():
@@ -40,7 +44,12 @@ def test_modules_import_without_forbidden_packages():
             "tmat_torch.topo.lightgraph", "tmat_torch.topo.regionprops",
             "tmat_torch.core.config", "tmat_torch.models.resnet", "tmat_torch.models.preprocess",
             "tmat_torch.models.synthetic", "tmat_torch.tools.compute_inv_depth", "tmat_torch.cli",
-            "tmat_torch.configure", "tmat_torch.gui"} <= set(MODULES)
+            "tmat_torch.configure", "tmat_torch.gui", "tmat_torch.models.train",
+            "tmat_torch.models.train_segmentation", "tmat_torch.models.train_invasion",
+            "tmat_torch.models.augment", "tmat_torch.models.data",
+            "tmat_torch.models.eval_segmentation", "tmat_torch.models.hp_search",
+            "tmat_torch.models.bo", "tmat_torch.models.convert",
+            "tmat_torch.models.layers"} <= set(MODULES)
 
 
 def test_front_doors_import_no_jax_triton_or_tk():
@@ -69,8 +78,8 @@ def test_no_import_of_the_jax_package():
                 names = [node.module]
             for name in names:
                 top = name.split(".")[0]
-                # PIL only inside the image loaders, never at module level
-                allowed = top == "PIL" and path.name == "io.py" and node.col_offset > 0
+                # PIL, h5py and matplotlib only inside functions, never at module level
+                allowed = top in LAZY and node.col_offset > 0
                 # Tk only inside the GUI's functions
                 assert top != "tkinter" or (path.name == "gui.py" and node.col_offset > 0), path
                 assert top not in FORBIDDEN or allowed, f"{path}: imports {name}"
@@ -85,13 +94,19 @@ def no_cuda():
 @pytest.mark.parametrize("entry", ["resolve_device", "segmentor", "run_plate", "main", "zproj_main",
                                    "zproj_project", "cell_area_main", "cell_area_analyze",
                                    "branches_main", "branches_analyze", "inv_depth_main",
-                                   "inv_depth_ensemble", "inv_depth_prep", "resnet", "cli", "gui"])
+                                   "inv_depth_ensemble", "inv_depth_prep", "resnet", "cli", "gui",
+                                   "train_segmentation", "train_invasion", "hp_search",
+                                   "eval_segmentation", "unet_trainable", "resnet_trainable",
+                                   "invasion_data"])
 def test_entry_points_refuse_without_cuda(no_cuda, entry, tmp_path):
     from tmat_torch.device import resolve_device
     from tmat_torch.models.unet import UNetXceptionPatchSegmentor
     from tmat_torch import cli, gui
     from tmat_torch.models.preprocess import prep_inv_depth_imgs_hybrid
-    from tmat_torch.models.resnet import build_resnet50_tl
+    from tmat_torch.models import (data, eval_segmentation, hp_search, train_invasion,
+                                   train_segmentation)
+    from tmat_torch.models.resnet import build_resnet50_tl, build_trainable_resnet50_tl
+    from tmat_torch.models.unet import build_unet_xception
     from tmat_torch.tools import (compute_branches, compute_cell_area, compute_inv_depth, compute_zproj,
                                   plate_pipeline)
 
@@ -116,7 +131,33 @@ def test_entry_points_refuse_without_cuda(no_cuda, entry, tmp_path):
         "cli": lambda: cli.main(["compute_inv_depth", str(tmp_path), str(tmp_path / "out")]),
         "gui": lambda: gui.run_tool(gui.TABS[3], gui.build_namespace(
             gui.TABS[3], {"in_root": str(tmp_path), "out_root": str(tmp_path / "out")})),
+        "train_segmentation": lambda: train_segmentation.main([str(tmp_path)]),
+        "train_invasion": lambda: train_invasion.main([str(tmp_path)]),
+        "hp_search": lambda: hp_search.main([str(tmp_path)]),
+        "eval_segmentation": lambda: eval_segmentation.main(
+            [str(tmp_path), str(tmp_path / "out"), "--model-cfg", str(SHIPPED_CFG)]),
+        "unet_trainable": lambda: build_unet_xception(1, (32, 32), filter_counts=(8, 16)),
+        "resnet_trainable": lambda: build_trainable_resnet50_tl(1, (32, 32, 3)),
+        "invasion_data": lambda: data.InvasionDataGenerator({0: [], 1: []}, {}, 2, (8, 8),
+                                                            np.random.RandomState(0)),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_missing_member_names_the_port_trainer(tmp_path, monkeypatch, capsys):
+    """A missing ensemble checkpoint points the user at the port's trainer."""
+    from tmat_torch.core import defs
+    from tmat_torch.tools import compute_inv_depth
+
+    (tmp_path / "mt" / "best_ensemble").mkdir(parents=True)
+    monkeypatch.setattr(defs, "MODEL_TRAINING_DIR", tmp_path / "mt")
+    (tmp_path / "in").mkdir()
+    np.save(tmp_path / "in" / "unused.npy", np.zeros(1))
+    with pytest.raises(SystemExit) as exc:
+        compute_inv_depth.main(argv=[str(tmp_path / "in"), str(tmp_path / "out")], device="cpu")
+    assert exc.value.code == 1
+    out = capsys.readouterr().out
+    assert "Ensemble checkpoint not found" in out
+    assert "python -m tmat_torch.models.train_invasion" in out and "tmat_tpu" not in out

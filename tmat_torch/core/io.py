@@ -1,8 +1,8 @@
 """Image I/O: TIFF/PNG loading with TCZYX dimension handling and pixel sizes.
 
-A copy of the tools' part of ``tmat_tpu/core/io.py`` (load_image,
-get_image_dims, probe_image_header, probe_image_dims, save_image,
-get_unique_output_filepath). TIFF and PNG are read and written with PIL,
+A copy of the tools' and the trainers' part of ``tmat_tpu/core/io.py``
+(load_image, get_image_dims, probe_image_header, probe_image_dims,
+save_image, get_unique_output_filepath, get_img_mask_paths). TIFF and PNG are read and written with PIL,
 imported inside the loaders and savers only; Nikon ND2 goes through the
 chunk parser ``core/nd2.py`` (an installed ``nd2`` package is preferred
 when present). Returned layout: ZYX (or YX when Z==1) plus
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import os.path as osp
 import sys
+from glob import glob
 from pathlib import Path
 from typing import List, NamedTuple, Optional, Tuple, Union
 
@@ -331,3 +332,44 @@ def get_unique_output_filepath(file: Union[str, Path]) -> Union[str, Path]:
         file_num += 1
         file = dirname / f"{name}-{file_num}{ext}"
     return file if is_pathlib else str(file)
+
+
+def get_img_mask_paths(
+    img_dir: str,
+    mask_dir: Optional[str] = None,
+    img_suffix_pattern: str = ".tif",
+    label_suffix_pattern: str = "_mask.tif",
+) -> List[Tuple[str, str]]:
+    """Pair image and mask paths 1:1 with strict validation."""
+    if mask_dir is None:
+        mask_dir = img_dir
+
+    same_dir = img_dir == mask_dir
+    if same_dir and img_suffix_pattern == label_suffix_pattern:
+        raise ValueError("directories and suffixes for images and labels are identical")
+    exclude_mask_suffix = same_dir and label_suffix_pattern.endswith(img_suffix_pattern)
+    exclude_img_suffix = same_dir and img_suffix_pattern.endswith(label_suffix_pattern)
+
+    img_paths = glob(osp.join(img_dir, f"*{img_suffix_pattern}"))
+    if exclude_mask_suffix:
+        img_paths = [fp for fp in img_paths if not fp.endswith(label_suffix_pattern)]
+
+    mask_filenames = [Path(fp).name for fp in glob(osp.join(mask_dir, f"*{label_suffix_pattern}"))]
+    if exclude_img_suffix:
+        mask_filenames = [fn for fn in mask_filenames if not fn.endswith(img_suffix_pattern)]
+
+    if len(img_paths) != len(mask_filenames):
+        raise ValueError(
+            f"number of images ({len(img_paths)}) and labels "
+            f"({len(mask_filenames)}) is different"
+        )
+    img_paths = sorted(img_paths)
+    mask_paths = []
+    for img_path in img_paths:
+        sample_name = Path(img_path).name.replace(img_suffix_pattern, "")
+        mask_fname = sample_name + label_suffix_pattern
+        if mask_fname not in mask_filenames:
+            raise ValueError(f"label {mask_fname} not found for image {Path(img_path).name}")
+        mask_paths.append(osp.join(mask_dir, mask_fname))
+
+    return [*zip(img_paths, mask_paths)]

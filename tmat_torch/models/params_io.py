@@ -1,13 +1,17 @@
-"""Checkpoint reader and weight carry-over from the JAX package's format.
+"""Checkpoint reader and writer, and weight carry-over, in the JAX package's format.
 
-Counterpart of ``tmat_tpu/models/params_io.py::load_params``. A Flax
+Counterpart of ``tmat_tpu/models/params_io.py`` (``load_params`` and
+``save_params``). A Flax
 checkpoint is a msgpack map of the ``{"params", "batch_stats"}`` tree whose
 array leaves are msgpack ext records of type 1 (ndarray) or 3 (numpy
 scalar); the payload is itself msgpack: ``(shape, dtype name, C-order
 bytes)`` (``flax.serialization._ndarray_to_bytes``). ``read_msgpack`` is a
 small pure-Python decoder for exactly that subset, so the port needs no
 ``msgpack`` package. Float16- and bfloat16-stored leaves are cast up to
-float32.
+float32. ``to_msgpack`` encodes a tree into the bytes that
+``flax.serialization.to_bytes`` gives for it (the same msgpack forms, key
+order and ext payloads), and ``save_params`` writes them to a file, with
+an optional down-cast of the float leaves.
 
 ``from_flax_variables`` turns such a tree of numpy arrays into the port's
 BN-folded UNet weights, ``from_flax_resnet_variables`` into the
@@ -18,12 +22,15 @@ packages; the tests use them to give both the same model.
 from __future__ import annotations
 
 import struct
+from pathlib import Path
 from typing import Any, Dict, Sequence, Tuple
 
 import numpy as np
+import torch
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
+_MAX_CHUNK_SIZE = 2**30  # flax.serialization.MAX_CHUNK_SIZE
 
 
 class _Reader:
@@ -131,6 +138,147 @@ def read_msgpack(data: bytes) -> Any:
     if r.pos != len(r.data):
         raise ValueError("trailing bytes after the msgpack object")
     return out
+
+
+def _uint(out: bytearray, n: int, fix: int, fix_max: int, codes: Sequence[Tuple[int, str]]) -> None:
+    """A msgpack length header: the fix form up to ``fix_max``, else the
+    first of ``codes`` ((type byte, struct format)) whose width holds ``n``."""
+    if n <= fix_max:
+        out.append(fix | n)
+        return
+    for code, fmt in codes:
+        if n < 1 << (8 * struct.calcsize(fmt)):
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack object of length {n} is too long")
+
+
+_STR = ((0xD9, ">B"), (0xDA, ">H"), (0xDB, ">I"))
+_BIN = ((0xC4, ">B"), (0xC5, ">H"), (0xC6, ">I"))
+_ARRAY = ((0xDC, ">H"), (0xDD, ">I"))
+_MAP = ((0xDE, ">H"), (0xDF, ">I"))
+_FIXEXT_CODES = {size: code for code, size in _FIXEXT.items()}
+
+
+def _pack_int(out: bytearray, n: int) -> None:
+    """msgpack's smallest form of an integer, as msgpack-python packs it."""
+    if 0 <= n < 128 or -32 <= n < 0:
+        out += struct.pack(">b" if n < 0 else ">B", n)
+        return
+    forms = (((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")) if n >= 0 else
+             ((0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"), (0xD3, ">q")))
+    for code, fmt in forms:
+        bits = 8 * struct.calcsize(fmt)
+        if (n < 1 << bits) if n >= 0 else (n >= -(1 << (bits - 1))):
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise OverflowError(f"integer {n} does not fit msgpack")
+
+
+def _pack_str(out: bytearray, s: str) -> None:
+    data = s.encode("utf-8")
+    _uint(out, len(data), 0xA0, 31, _STR)
+    out += data
+
+
+def _pack_bin(out: bytearray, data: bytes) -> None:
+    _uint(out, len(data), 0xC4, -1, _BIN)
+    out += data
+
+
+def _ndarray_payload(arr: np.ndarray) -> bytes:
+    """``flax.serialization._ndarray_to_bytes``: msgpack of (shape, dtype
+    name, C-order bytes)."""
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError("object and structured dtypes cannot be serialized")
+    if arr.nbytes > _MAX_CHUNK_SIZE:
+        raise ValueError("array leaves over 1 GB (chunked by Flax) are not supported")
+    out = bytearray()
+    _uint(out, 3, 0x90, 15, _ARRAY)
+    _uint(out, arr.ndim, 0x90, 15, _ARRAY)
+    for dim in arr.shape:
+        _pack_int(out, int(dim))
+    _pack_str(out, arr.dtype.name)
+    _pack_bin(out, arr.tobytes("C"))
+    return bytes(out)
+
+
+def _pack_ext(out: bytearray, code: int, payload: bytes) -> None:
+    n = len(payload)
+    if n in _FIXEXT_CODES:
+        out.append(_FIXEXT_CODES[n])
+    else:
+        _uint(out, n, 0xC7, -1, ((0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I")))
+    out += struct.pack(">b", code)
+    out += payload
+
+
+def _pack(out: bytearray, obj: Any) -> None:
+    # the order of the checks is msgpack's with strict types: a numpy
+    # scalar (np.float64 is a float) is an ext record, a bool no integer
+    if isinstance(obj, dict):
+        _uint(out, len(obj), 0x80, 15, _MAP)
+        for key, value in obj.items():
+            _pack_str(out, str(key))
+            _pack(out, value)
+    elif isinstance(obj, (list, tuple)):  # Flax's state dict of a sequence
+        _pack(out, {str(i): v for i, v in enumerate(obj)})
+    elif isinstance(obj, torch.Tensor):
+        _pack(out, obj.detach().cpu().numpy())
+    elif isinstance(obj, np.ndarray):
+        _pack_ext(out, _EXT_NDARRAY, _ndarray_payload(obj))
+    elif isinstance(obj, np.generic):
+        _pack_ext(out, _EXT_NPSCALAR, _ndarray_payload(np.asarray(obj)))
+    elif isinstance(obj, bool):
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, int):
+        _pack_int(out, obj)
+    elif isinstance(obj, float):
+        out.append(0xCB)
+        out += struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        _pack_str(out, obj)
+    elif isinstance(obj, bytes):
+        _pack_bin(out, obj)
+    else:
+        raise TypeError(f"cannot serialize a {type(obj).__name__} leaf")
+
+
+def to_msgpack(tree: Any) -> bytes:
+    """The bytes ``flax.serialization.to_bytes`` writes for ``tree``: a
+    nested dict (keys as strings, in their order) of numpy arrays, numpy
+    scalars, torch tensors (as numpy arrays) and Python numbers."""
+    out = bytearray()
+    _pack(out, tree)
+    return bytes(out)
+
+
+def _cast_floats(tree: Any, dtype) -> Any:
+    """``jax.tree.map`` of ``tmat_tpu``'s ``save_params`` down-cast: float
+    leaves to ``dtype``, other leaves to numpy arrays; dict keys sorted, as
+    a JAX tree map rebuilds them."""
+    if isinstance(tree, dict):
+        return {k: _cast_floats(tree[k], dtype) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast_floats(v, dtype) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        tree = tree.detach().cpu().numpy()
+    arr = np.asarray(tree)
+    return arr.astype(dtype) if np.issubdtype(arr.dtype, np.floating) else arr
+
+
+def save_params(path, tree: Any, dtype=None) -> None:
+    """Write ``tree`` as a Flax checkpoint; ``dtype=np.float16`` stores the
+    float leaves at half precision (the reader casts them back)."""
+    if dtype is not None:
+        tree = _cast_floats(tree, np.dtype(dtype))
+    data = to_msgpack(tree)
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as fp:
+        fp.write(data)
 
 
 def load_variables(path) -> Dict[str, Any]:

@@ -1,4 +1,4 @@
-"""ResNet50 transfer-learning classifier, inference only.
+"""ResNet50 transfer-learning classifier: inference, and a trainable twin.
 
 Counterpart of ``tmat_tpu/models/resnet.py``: Keras ResNet50 v1 (the
 stride on the first 1x1 of a stage's first block, not on the 3x3 as in
@@ -15,6 +15,14 @@ The base runs in the model's compute dtype (bfloat16 on CUDA, channels
 last); the pooled features are cast to float32 for the head, as the JAX
 model does. ``ensemble_forward`` runs k members on one input: the
 counterpart of the JAX package's vmapped ``make_ensemble_apply``.
+
+``TrainableResNet50TL`` is the Flax module with BatchNorm unfolded, for
+training (``models/train.py``): Flax names, layouts and init, float32.
+Its base normalises with the running statistics even in train mode (the
+JAX base runs ``train=False`` inside), so fine-tuning trains the base's
+BN scale and bias but never its statistics; the dense head starts at
+zero. A trained member reaches ``load_member`` through its Flax tree
+(``layers.flax_variables`` -> ``params_io.from_flax_resnet_variables``).
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from tmat_torch.device import DeviceLike, resolve_device
+from tmat_torch.models.layers import BatchNorm, Conv, init_kernels
+from tmat_torch.models.params_io import RESNET_BN_EPS
 
 # blocks and filters per stage of ResNet50
 _STAGE_BLOCKS = {2: 3, 3: 4, 4: 6, 5: 3}
@@ -130,6 +140,104 @@ class ResNet50TL(nn.Module):
         if self.output_act == "softmax":
             return torch.softmax(y, dim=-1)
         return y
+
+
+def _conv_nchw(x: torch.Tensor, conv: Conv, stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """A Flax conv (HWIO kernel, bias) on an NHWC tensor, through its NCHW view."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), conv.oihw(), conv.bias, stride=stride, padding=padding)
+    return y.permute(0, 2, 3, 1)
+
+
+class _TrainableBlock(nn.Module):
+    """Flax ``BottleneckBlock``: ``0_conv``/``0_bn`` (the projection
+    shortcut of a stage's first block), then ``1_`` .. ``3_`` conv + BN."""
+
+    def __init__(self, in_channels: int, filters: int, stride: int, conv_shortcut: bool):
+        super().__init__()
+        self.stride = stride
+        shapes = {"1": (1, 1, in_channels, filters), "2": (3, 3, filters, filters),
+                  "3": (1, 1, filters, 4 * filters)}
+        if conv_shortcut:
+            shapes = {"0": (1, 1, in_channels, 4 * filters), **shapes}
+        for i, shape in shapes.items():
+            self.add_module(f"{i}_conv", Conv(shape))
+            self.add_module(f"{i}_bn", BatchNorm(shape[-1], eps=RESNET_BN_EPS, use_running_average=True))
+
+    def _unit(self, x: torch.Tensor, i: str, stride: int = 1, padding: int = 0) -> torch.Tensor:
+        return self._modules[f"{i}_bn"](_conv_nchw(x, self._modules[f"{i}_conv"], stride, padding))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shortcut = self._unit(x, "0", self.stride) if "0_conv" in self._modules else x
+        y = F.relu(self._unit(x, "1", self.stride))
+        y = F.relu(self._unit(y, "2", padding=1))
+        return F.relu(self._unit(y, "3") + shortcut)
+
+
+class _TrainableBase(nn.Module):
+    """Flax ``ResNet50Base``: ``conv1_conv``/``conv1_bn``, then the blocks."""
+
+    def __init__(self, last_layer: str):
+        super().__init__()
+        self.add_module("conv1_conv", Conv((7, 7, 3, 64)))
+        self.add_module("conv1_bn", BatchNorm(64, eps=RESNET_BN_EPS, use_running_average=True))
+        channels = 64
+        for name, filters, stride, shortcut in _block_specs(last_layer):
+            self.add_module(name, _TrainableBlock(channels, filters, stride, shortcut))
+            channels = 4 * filters
+        self.out_channels = channels
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self._modules["conv1_bn"](_conv_nchw(x, self._modules["conv1_conv"], 2, 3)))
+        x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1).permute(0, 2, 3, 1)
+        for name, block in self._modules.items():
+            if "_block" in name:
+                x = block(x)
+        return x
+
+
+class TrainableResNet50TL(nn.Module):
+    """``tmat_tpu.models.resnet.ResNet50TL``, trainable: (B, h, w, 3)
+    float32 in, (B, n_outputs) out; submodules ``base_model`` and ``head``
+    (a Flax ``Dense``: kernel (C, n), bias)."""
+
+    def __init__(self, n_outputs: int = 1, last_layer: str = "conv5_block3_out",
+                 output_act: str = "sigmoid"):
+        super().__init__()
+        if output_act not in ("sigmoid", "softmax", "linear"):
+            raise ValueError(f"unsupported output activation {output_act!r}")
+        self.output_act = output_act
+        self.base_model = _TrainableBase(last_layer)
+        self.head = Conv((self.base_model.out_channels, n_outputs))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        feats = self.base_model(x.float()).mean(dim=(1, 2))
+        y = feats @ self.head.kernel + self.head.bias
+        if self.output_act == "sigmoid":
+            return torch.sigmoid(y)
+        if self.output_act == "softmax":
+            return torch.softmax(y, dim=-1)
+        return y
+
+
+def build_trainable_resnet50_tl(
+    n_outputs: int,
+    img_shape: Tuple[int, int, int],
+    base_last_layer: str = "conv5_block3_out",
+    output_act: str = "sigmoid",
+    seed: int = 0,
+    device: DeviceLike = None,
+) -> TrainableResNet50TL:
+    """The trainable classifier on ``device`` (None = CUDA), initialised as
+    Flax initialises it: lecun-normal kernels from ``torch.Generator``
+    seeded with ``seed``, zero biases, BN scale 1 and statistics 0 / 1, and
+    a zero head (``tmat_tpu/models/resnet.py``: with a random base a random
+    head saturates the sigmoid)."""
+    if tuple(img_shape)[-1] != 3:
+        raise ValueError(f"the classifier takes 3-channel inputs, not {img_shape}")
+    dev = resolve_device(device)
+    model = TrainableResNet50TL(n_outputs, base_last_layer, output_act)
+    init_kernels(model, seed, zero=("head.kernel",))
+    return model.to(dev)
 
 
 def build_resnet50_tl(

@@ -1,16 +1,74 @@
-"""Synthetic invasion-assay slices.
+"""Synthetic training data: microvessel image/mask pairs and invasion-assay slices.
 
-A copy of ``tmat_tpu/models/synthetic.py::synth_invasion_image`` (numpy
-and scipy only): the same seeded ``RandomState`` gives the same slice in
-both packages. The rest of that module makes training data and belongs
-with the port of training.
+A copy of ``tmat_tpu/models/synthetic.py`` (numpy and scipy; PIL only
+inside the writers): the same seeded ``RandomState`` gives the same
+images, and the writers the same files, in both packages.
+
+Usage:
+    python -m tmat_torch.models.synthetic OUT_DIR [--n 200] [--size 320]
+        [--kind vessels|invasion] [--seed 0]
+writes ``s{i}.tif`` / ``s{i}_mask.tif`` pairs for ``train_segmentation``,
+or ``no_invasion/`` + ``invasion/`` class dirs for ``train_invasion``.
 """
 
 from __future__ import annotations
 
+import argparse
+from pathlib import Path
+from typing import Tuple
+
 import numpy as np
 from numpy.random import RandomState
 from scipy import ndimage
+
+
+def _random_curve(rng: RandomState, size: int, n_ctrl: int = 4) -> np.ndarray:
+    """Sampled points along a random quadratic-ish Bezier chain."""
+    ctrl = rng.rand(n_ctrl, 2) * size
+    ts = np.linspace(0, 1, 40)
+    points = []
+    for i in range(n_ctrl - 2):
+        p0, p1, p2 = ctrl[i], ctrl[i + 1], ctrl[i + 2]
+        seg = (
+            ((1 - ts) ** 2)[:, None] * p0
+            + (2 * ts * (1 - ts))[:, None] * p1
+            + (ts**2)[:, None] * p2
+        )
+        points.append(seg)
+    return np.concatenate(points)
+
+
+def synth_vessel_image(
+    rng: RandomState, size: int = 320, n_vessels: int = None
+) -> Tuple[np.ndarray, np.ndarray]:
+    """One (image uint8, mask uint8 {0,255}) pair."""
+    n_vessels = n_vessels if n_vessels is not None else rng.randint(2, 7)
+    mask = np.zeros((size, size), bool)
+
+    for _ in range(n_vessels):
+        pts = _random_curve(rng, size)
+        width = rng.uniform(1.5, 5.0)
+        canvas = np.zeros((size, size), bool)
+        ij = np.clip(np.round(pts).astype(int), 0, size - 1)
+        canvas[ij[:, 0], ij[:, 1]] = True
+        # densify: connect consecutive samples
+        for k in range(len(ij) - 1):
+            n_interp = int(np.abs(ij[k + 1] - ij[k]).max()) + 1
+            rr = np.linspace(ij[k, 0], ij[k + 1, 0], n_interp).round().astype(int)
+            cc = np.linspace(ij[k, 1], ij[k + 1, 1], n_interp).round().astype(int)
+            canvas[rr, cc] = True
+        dist = ndimage.distance_transform_edt(~canvas)
+        mask |= dist <= width
+
+    brightness = rng.uniform(120, 220)
+    img = np.zeros((size, size), np.float32)
+    img[mask] = brightness * rng.uniform(0.7, 1.0, size=mask.sum())
+    img = ndimage.gaussian_filter(img, rng.uniform(0.8, 1.6))
+    # background texture + sensor noise
+    img += ndimage.gaussian_filter(rng.rand(size, size) * 40, 4)
+    img += rng.normal(0, 6, (size, size))
+    img = np.clip(img, 0, 255).astype(np.uint8)
+    return img, (mask.astype(np.uint8) * 255)
 
 
 def synth_invasion_image(
@@ -119,3 +177,59 @@ def synth_invasion_image(
     img += ndimage.gaussian_filter(rng.rand(size, size) * 30, 4)
     img += rng.normal(0, 5, (size, size))
     return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def generate_invasion_dataset(
+    out_dir, n_per_class: int = 300, size: int = 256, seed: int = 0
+) -> None:
+    """Write no_invasion/ + invasion/ class dirs for train_invasion."""
+    from PIL import Image
+
+    out_dir = Path(out_dir)
+    rng = RandomState(seed)
+    for name, invaded in (("no_invasion", False), ("invasion", True)):
+        cls_dir = out_dir / name
+        cls_dir.mkdir(parents=True, exist_ok=True)
+        for i in range(n_per_class):
+            img = synth_invasion_image(rng, size, invaded)
+            Image.fromarray(img).save(cls_dir / f"{name}_{i}.tif")
+
+
+def generate_dataset(out_dir, n: int = 200, size: int = 320, seed: int = 0) -> None:
+    from PIL import Image
+
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rng = RandomState(seed)
+    for i in range(n):
+        img, mask = synth_vessel_image(rng, size)
+        Image.fromarray(img).save(out_dir / f"s{i}.tif")
+        Image.fromarray(mask).save(out_dir / f"s{i}_mask.tif")
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("out_dir", type=str)
+    p.add_argument("--n", type=int, default=200)
+    p.add_argument("--size", type=int, default=320)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument(
+        "--kind",
+        choices=("vessels", "invasion"),
+        default="vessels",
+        help=(
+            "vessels: s{i}.tif/s{i}_mask.tif segmentation pairs; "
+            "invasion: no_invasion/ + invasion/ class dirs (--n per class)"
+        ),
+    )
+    args = p.parse_args(argv)
+    if args.kind == "invasion":
+        generate_invasion_dataset(args.out_dir, args.n, args.size, args.seed)
+        print(f"Wrote {args.n} images per class to {args.out_dir}")
+    else:
+        generate_dataset(args.out_dir, args.n, args.size, args.seed)
+        print(f"Wrote {args.n} image/mask pairs to {args.out_dir}")
+
+
+if __name__ == "__main__":
+    main()

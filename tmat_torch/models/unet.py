@@ -1,7 +1,8 @@
-"""UNet-Xception eval forward and the tiled patch segmentor.
+"""UNet-Xception: the trainable model, the eval forward and the tiled patch segmentor.
 
-Counterparts: ``tmat_tpu/models/unet.py`` (the Flax module and
-``UNetXceptionPatchSegmentor``) and the BN-folded forward of
+Counterparts: ``tmat_tpu/models/unet.py`` (the Flax module,
+``build_unet_xception`` and ``UNetXceptionPatchSegmentor``) and the
+BN-folded forward of
 ``tmat_tpu/ops/pallas_unet.py::make_fused_pred_fn``, whose rounding
 points this forward keeps. Batches are NHWC, as in the JAX package.
 
@@ -15,6 +16,12 @@ package leaves them to XLA. Flax padding conventions kept here:
   is a plain correlation with the unflipped (kh, kw, in, out) kernel and
   padding (1, 1);
 - the up residual is a 1x1 conv followed by a nearest x2 upsample.
+
+``TrainableUNetXception`` is the Flax module itself, BatchNorm unfolded
+(``layers.BatchNorm``), for training through autograd on these same
+helpers and the down block's plain pieces (depthwise conv, TF-SAME max
+pool); a trained model reaches inference by ``layers.flax_variables`` ->
+``from_flax_variables`` -> ``UNetXception``, and so through the kernel.
 """
 
 from __future__ import annotations
@@ -30,8 +37,10 @@ import torch.nn.functional as F
 
 from tmat_torch.core import defs
 from tmat_torch.device import DeviceLike, dtype_from_name, resolve_device
+from tmat_torch.models.layers import BatchNorm, Conv, init_kernels
 from tmat_torch.models.params_io import from_flax_variables, load_variables
-from tmat_torch.ops.down_block import BIAS_KEYS, WEIGHT_KEYS, down_block, down_block_plain
+from tmat_torch.ops.down_block import (BIAS_KEYS, WEIGHT_KEYS, _depthwise, _maxpool3x3s2, down_block,
+                                       down_block_plain)
 from tmat_torch.ops.resize import resize, target_shape_for_ratio
 from tmat_torch.ops.tiled import predict_img_with_smooth_windowing
 
@@ -135,6 +144,129 @@ class UNetXception(nn.Module):
         elif self.output_act == "softmax":
             y = torch.softmax(y, dim=-1)
         return y
+
+
+def check_consec_factor(x: Sequence[float], factor: float) -> bool:
+    """Elements increase consecutively by ``factor``."""
+    return all(x[i] == x[i - 1] * factor for i in range(1, len(x)))
+
+
+class SeparableConv(nn.Module):
+    """Flax ``SeparableConv``: a bias-free depthwise 3x3 (``(3, 3, 1, C)``)
+    and a pointwise 1x1 with bias."""
+
+    def __init__(self, in_ch: int, features: int):
+        super().__init__()
+        self.depthwise = Conv((3, 3, 1, in_ch), bias=False)
+        self.pointwise = Conv((1, 1, in_ch, features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dw = self.depthwise.kernel[:, :, 0, :].reshape(9, -1)
+        return _pointwise(_depthwise(x, dw), self.pointwise.kernel[0, 0], self.pointwise.bias)
+
+
+class TrainableUNetXception(nn.Module):
+    """``tmat_tpu.models.unet.UNetXception``, trainable: NHWC float32 in,
+    probabilities out; BatchNorm (momentum ``bn_momentum``, eps 1e-3) uses
+    batch statistics in train mode and updates its running ones. Submodules
+    carry the Flax names in Flax's creation order (``layers``)."""
+
+    def __init__(self, n_outputs: int = 1, filter_counts: Tuple[int, ...] = (32, 64, 128, 256),
+                 output_act: str = "sigmoid", bn_momentum: float = 0.99, channels: int = 1):
+        super().__init__()
+        f = tuple(sorted(filter_counts))
+        if not check_consec_factor(f, 2):
+            raise ValueError("Filter depths do not increase consecutively by a factor of 2.")
+        if output_act not in ("sigmoid", "softmax", "linear"):
+            raise ValueError(f"unsupported output activation {output_act!r}")
+        self.filter_counts, self.output_act = f, output_act
+        self.n_down, self.n_up = len(f) - 1, len(f)
+        n = {"Conv": 0, "BatchNorm": 0, "SeparableConv": 0, "ConvTranspose": 0}
+
+        def add(kind, module):
+            self.add_module(f"{kind}_{n[kind]}", module)
+            n[kind] += 1
+
+        def bn(c):
+            add("BatchNorm", BatchNorm(c, bn_momentum, 1e-3))
+
+        add("Conv", Conv((3, 3, channels, f[0])))
+        bn(f[0])
+        prev = f[0]
+        for filters in f[1:]:
+            add("SeparableConv", SeparableConv(prev, filters))
+            bn(filters)
+            add("SeparableConv", SeparableConv(filters, filters))
+            bn(filters)
+            add("Conv", Conv((1, 1, prev, filters)))
+            prev = filters
+        for filters in reversed(f):
+            add("ConvTranspose", Conv((3, 3, prev, filters)))
+            bn(filters)
+            add("ConvTranspose", Conv((3, 3, filters, filters)))
+            bn(filters)
+            add("Conv", Conv((1, 1, prev, filters)))
+            prev = filters
+        add("Conv", Conv((3, 3, prev, n_outputs)))
+
+    def _layer(self, name: str) -> nn.Module:
+        return self._modules[name]
+
+    def _conv(self, x: torch.Tensor, name: str, stride: int = 1) -> torch.Tensor:
+        conv = self._layer(name)
+        return _conv_nhwc(x, conv.oihw(), stride) + conv.bias
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n_down, n_up = self.n_down, self.n_up
+        x = torch.relu(self._layer("BatchNorm_0")(self._conv(x.float(), "Conv_0", 2)))
+        previous = x
+        for i in range(n_down):
+            if i:
+                x = torch.relu(x)
+            x = self._layer(f"SeparableConv_{2 * i}")(x)
+            x = torch.relu(self._layer(f"BatchNorm_{1 + 2 * i}")(x))
+            x = self._layer(f"SeparableConv_{2 * i + 1}")(x)
+            x = _maxpool3x3s2(self._layer(f"BatchNorm_{2 + 2 * i}")(x))
+            res = self._layer(f"Conv_{1 + i}")  # 1x1 stride 2: TF-SAME pads nothing
+            x = x + _pointwise(previous[:, ::2, ::2], res.kernel[0, 0], res.bias)
+            previous = x
+        for j in range(n_up):
+            bn = 1 + 2 * n_down + 2 * j
+            h = self._conv(torch.relu(x), f"ConvTranspose_{2 * j}")
+            h = torch.relu(self._layer(f"BatchNorm_{bn}")(h))
+            h = self._layer(f"BatchNorm_{bn + 1}")(self._conv(h, f"ConvTranspose_{2 * j + 1}"))
+            res = self._layer(f"Conv_{1 + n_down + j}")
+            x = _upsample2(h + _pointwise(previous, res.kernel[0, 0], res.bias))
+            previous = x
+        y = self._conv(x, f"Conv_{1 + n_down + n_up}")
+        if self.output_act == "sigmoid":
+            return torch.sigmoid(y)
+        if self.output_act == "softmax":
+            return torch.softmax(y, dim=-1)
+        return y
+
+
+def build_unet_xception(
+    n_outputs: int,
+    img_shape: Tuple[int, int],
+    channels: int = 1,
+    filter_counts: Tuple[int, ...] = (32, 64, 128, 256),
+    output_act: str = "sigmoid",
+    seed: int = 0,
+    bn_momentum: float = 0.99,
+    device: DeviceLike = None,
+) -> TrainableUNetXception:
+    """The trainable UNet on ``device`` (None = CUDA), initialised as Flax
+    initialises it (lecun-normal kernels drawn from ``torch.Generator``
+    seeded with ``seed``, zero biases, BN scale 1, statistics 0 / 1).
+    ``img_shape`` (the patch size) must be divisible by 2**len(filter_counts)."""
+    dev = resolve_device(device)
+    h, w = img_shape
+    if h % 2 ** len(filter_counts) or w % 2 ** len(filter_counts):
+        raise ValueError(f"patch {img_shape} is not divisible by 2**{len(filter_counts)}")
+    model = TrainableUNetXception(n_outputs, tuple(filter_counts), output_act, bn_momentum, channels)
+    init_kernels(model, seed)
+    return model.to(dev)
 
 
 class UNetXceptionPatchSegmentor:

@@ -203,7 +203,7 @@ def main(args=None, argv=None, device: DeviceLike = None):
             print(
                 f"{SFM.failure} Ensemble checkpoint not found: {ckpt}\n"
                 f"{SFM.info} Train the ensemble with "
-                f"{SFM.highlight('python -m tmat_tpu.models.train_invasion')} "
+                f"{SFM.highlight('python -m tmat_torch.models.train_invasion')} "
                 "or place converted checkpoints in that directory.",
                 flush=True,
             )
