@@ -5,9 +5,10 @@
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device: the card's name, count and power limit (no CUDA device: exit 1);
-2. build: the two CUDA kernels and the three host libraries, from the
-   sources in this checkout, all compilers started together, into an
-   empty build cache (``TMAT_TORCH_BUILD_DIR``, a temporary directory);
+2. build: the three CUDA kernels (the down block, focus stacking and the
+   int8 conv) and the three host libraries, from the sources in this
+   checkout, all compilers started together, into an empty build cache
+   (``TMAT_TORCH_BUILD_DIR``, a temporary directory);
 3. kernel: the fused down block against its plain PyTorch version at the
    three production block shapes (B=8, f32 and bf16) and at an odd-width
    block, so that both forms of the kernel (the warpgroup form of the bf16
@@ -54,7 +55,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    run, from the kernels and copies in the trace, and the run's time
    without the profiler;
 14. warmup: ``python -m tmat_torch.cli warmup`` in a fresh process on an
-   empty build cache, then in a second fresh process: 5 libraries built,
+   empty build cache, then in a second fresh process: 6 libraries built,
    then 0, and the same outputs; both processes' wall times;
 15. distributed: ``compute_inv_depth`` (the eight stacks of phase 11),
    ``compute_branches`` on eight 2-D images (``--no-vis``) and
@@ -72,14 +73,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
    float16 member through ``compute_inv_depth``'s ensemble path; the
    registered segmentor (bf16) through ``eval_segmentation.evaluate`` on
    two 1024^2 images, its probability maps against the plain path (bf16
-   and f32); one small UNet step on the card against the CPU.
+   and f32); one small UNet step on the card against the CPU;
+17. quant: the int8 conv kernel against its plain version, bit-equal, at
+   B=8 for the six up convs the mixed segmentor quantises, the entry conv
+   and a 1x1/s2 residual, in every epilogue form; the six timed at B=200
+   (CUDA events) beside their bound, the plain version, ``torch._int_mm``
+   over an unfolded input and the cuDNN bf16 conv they replace; the shipped
+   segmentor with ``"quantize": true`` (scales from the shipped sidecar, no
+   calibration) on phase 4's 200 patches: 6 int8 and 3 down-block launches
+   a forward, its mask against the f32 plain forward (IoU >= 0.96), forward
+   ms beside the bf16 path's; a calibration on a copy of the checkpoint
+   (scales within 1e-3 of the sidecar's, the sidecar rewritten, none the
+   second time); ``run_plate`` of phase 5's wells with the quantized
+   segmentor, beside the bf16 plate;
+18. package: a bundle (``python -m tmat_torch.packaging``) running
+   ``./tmat-torch compute_zproj IN OUT -m fs`` on a fresh build cache, its
+   TIFFs byte-equal to the in-process tool's; a ``--standalone`` bundle
+   running ``-m max`` with no python on ``PATH``; both bundles' bytes and
+   seconds.
 
 Phase 4 also holds the bf16 kernel path's mask against an f32 forward of
 the plain path. The launch counts of phases 5, 8, 9, 10, 13 and 15 go into
-the kernels line, and so do the trained segmentor's of phase 16; phases 11
-and 12, the inv_depth runs of 15 and the training steps launch neither
-kernel (the JAX package trains through plain Flax layers, with no custom
-gradient). The last line is {"ok": true, "device": {...}}.
+the kernels line, and so do the trained segmentor's of phase 16 and the
+quantized segmentor's of phase 17 (whose int8 launches are the int8
+conv's); phases 11 and 12, the inv_depth runs of 15 and the training steps
+launch neither kernel (the JAX package trains through plain Flax layers,
+with no custom gradient). The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -105,6 +124,7 @@ from tmat_torch.tools.timing import BLOCK_SHAPES, card_line, cuda_ms, stack_pool
 # H100 SXM dense peaks and memory rate (NVIDIA data sheet): bf16 products on
 # the tensor cores, f32 on the CUDA cores
 PEAK_BF16_TC = 989e12
+PEAK_INT8_TC = 1979e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 SHIPPED_CFG = "model_training/binary_segmentation/configs/unet_patch_segmentor_1.json"
@@ -165,10 +185,10 @@ def block_work(b: int, h: int, c: int, f: int, dtype: torch.dtype) -> dict:
 def phase_build():
     from tmat_torch import build
 
-    from tmat_torch.ops import focus_stack
+    from tmat_torch.ops import focus_stack, int8_conv
 
     jobs = {"down_block": lambda: build.cuda_library("down_block"),
-            "focus_stack": focus_stack.library_path}
+            "focus_stack": focus_stack.library_path, "int8_conv": int8_conv.library_path}
     for name in ("labeling", "dmtgraph", "morse"):
         jobs[name] = lambda n=name: build.host_library(n)
     t0 = time.perf_counter()
@@ -178,7 +198,7 @@ def phase_build():
     seconds = time.perf_counter() - t0
     if build.builds != len(jobs):
         raise AssertionError(f"{build.builds} libraries built into an empty cache, not {len(jobs)}")
-    ptxas = [ln.strip() for name in ("down_block", "focus_stack")
+    ptxas = [ln.strip() for name in ("down_block", "focus_stack", "int8_conv")
              for ln in build.logs.get(name, "").splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit("build", seconds=round(seconds, 3), built=build.builds, libraries=paths, ptxas=ptxas)
@@ -283,6 +303,7 @@ def phase_unet(seg, well: np.ndarray, device):
          max_abs_diff=(pred - plain).abs().max().item(), foreground=mp.float().mean().item(),
          mask_iou_bf16_vs_f32=iou32, max_abs_diff_bf16_vs_f32=diff32,
          forward_ms=kernel_ms, plain_forward_ms=plain_ms)
+    return {"batch": batch, "mask32": m32, "forward_ms": kernel_ms}
 
 
 def phase_plate(seg, n_wells: int, rng, device):
@@ -327,7 +348,7 @@ def phase_plate(seg, n_wells: int, rng, device):
     emit("plate", wells=n_wells, size=[8, 1024, 1024], wells_per_sec=[wps1, wps2], warm_s=warm_s,
          unet_forwards=forwards[0], max_memory_allocated=torch.cuda.max_memory_allocated(),
          stage_totals_s=timers[-1].totals, results=r1)
-    return launches
+    return {"launches": launches, "plate": plate, "ids": ids, "results": r1, "wells_per_sec": [wps1, wps2]}
 
 
 def focus_work(z_counts, h: int, w: int, itemsize: int) -> dict:
@@ -898,7 +919,7 @@ def _empty_base(path: Path) -> Path:
 
 def phase_warmup(tmp: Path):
     """``tmat-torch warmup`` in a fresh process on an empty build cache,
-    then in a second fresh process: 5 libraries built, then none, and the
+    then in a second fresh process: 6 libraries built, then none, and the
     same outputs."""
     import re
 
@@ -919,8 +940,8 @@ def phase_warmup(tmp: Path):
                  re.findall(r"(\w+) warmed in ([\d.]+)s \(outputs sha256 (\w+)\)", proc.stdout)}
         runs.append({"seconds": seconds, "built": built, "build_s": build_s, "tools": tools})
     (first, second) = runs
-    if first["built"] != [5, 5] or second["built"] != [0, 5]:
-        raise AssertionError(f"warmup built {first['built']} then {second['built']} libraries, not [5, 5], [0, 5]")
+    if first["built"] != [6, 6] or second["built"] != [0, 6]:
+        raise AssertionError(f"warmup built {first['built']} then {second['built']} libraries, not [6, 6], [0, 6]")
     if set(first["tools"]) != {"zproj", "area", "branches", "inv_depth", "plate"}:
         raise AssertionError(f"warmup ran {sorted(first['tools'])}")
     digests = [{k: d for k, (_, d) in run["tools"].items()} for run in runs]
@@ -1427,6 +1448,312 @@ def phase_train(tmp: Path, device) -> int:
     return trained["launches"]
 
 
+# (tag, H, Cin, Cout, kh, stride) of the int8 conv at the segmentor's widths
+# (patch 320, filters 64-512): the six up convs the mixed forward quantises,
+# then the entry conv and the first down block's 1x1/s2 residual
+INT8_MIXED = [("u0.t1", 20, 512, 512, 3, 1), ("u0.t2", 20, 512, 512, 3, 1), ("u1.t1", 40, 512, 256, 3, 1),
+              ("u1.t2", 40, 256, 256, 3, 1), ("u2.t1", 80, 256, 128, 3, 1), ("u2.t2", 80, 128, 128, 3, 1)]
+INT8_SHAPES = INT8_MIXED + [("entry", 320, 1, 64, 3, 2), ("d0.res", 160, 64, 128, 1, 2)]
+# (output dtype, relu, sout): the int8 epilogue, the mixed forward's float
+# one, the float tail's (with sout), each with and without relu somewhere
+INT8_FORMS = [(torch.int8, False, False), (torch.int8, True, False), (torch.bfloat16, False, False),
+              (torch.float32, True, False), (torch.float32, False, True), (torch.bfloat16, True, True)]
+QUANT_IOU = 0.96  # the quantized mask against the f32 one: tests/test_quant.py's floor
+QUANT_AREA_TOL = 0.5  # area % points between the quantized and the bf16 plate
+QUANT_SCALE_RTOL = 1e-3  # the card's calibration against the shipped sidecar
+
+
+def conv_work(b: int, h: int, cin: int, cout: int, kh: int, stride: int, out_bytes: int) -> dict:
+    """What one int8 conv must do and move, and the least time the card
+    could take for it: 2 * kh*kh*cin int8 tensor-core operations per output
+    (the padded depth excluded); bytes: the int8 batch read once, the packed
+    weights and two float32 vectors read once, the output written once."""
+    from tmat_torch.ops.int8_conv import out_size, padded_depth
+
+    ho = out_size(h, stride)
+    outputs = b * ho * ho * cout
+    ops = 2 * outputs * kh * kh * cin
+    nbytes = b * h * h * cin + cout * padded_depth(kh, cin) + 2 * 4 * cout + outputs * out_bytes
+    ops_ms, bytes_ms = ops / PEAK_INT8_TC * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"ops": ops, "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms)}
+
+
+def _int8_inputs(rng, b, h, cin, cout, kh, device):
+    """A random int8 batch and packed weights, and per-channel m, c and sout
+    (m keeps sums of up to 9 * 512 * 127**2 within a few hundred steps)."""
+    from tmat_torch.ops import int8_conv as ic
+
+    x = torch.from_numpy(rng.randint(-127, 128, (b, h, h, cin)).astype(np.int8)).to(device)
+    packed = ic.pack_weights(rng.randint(-127, 128, (kh, kh, cin, cout)).astype(np.int8)).to(device)
+    m, c, sout = (torch.tensor(v.astype(np.float32), device=device)
+                  for v in (rng.rand(cout) * 2e-4, rng.randn(cout), rng.rand(cout) * 3))
+    return x, packed, m, c, sout
+
+
+def _im2col(x: torch.Tensor, kh: int) -> torch.Tensor:
+    """The (B*H*W, kh*kh*C) int8 rows of a stride-1 SAME conv, taps in the
+    packed weights' (dy, dx, ci) order."""
+    p = kh // 2
+    b, h, w, c = x.shape
+    xp = torch.nn.functional.pad(x, (0, 0, p, p, p, p))
+    return torch.cat([xp[:, dy: dy + h, dx: dx + w] for dy in range(kh) for dx in range(kh)],
+                     dim=-1).reshape(b * h * w, kh * kh * c)
+
+
+def _int8_kernel_check(rng, device):
+    from tmat_torch.ops import int8_conv as ic
+
+    cases = []
+    for tag, h, cin, cout, kh, stride in INT8_SHAPES:
+        x, packed, m, c, sout = _int8_inputs(rng, 8, h, cin, cout, kh, device)
+        for out_dtype, relu, use_sout in INT8_FORMS:
+            args = (x, packed, kh, stride, m, c, relu, out_dtype, sout if use_sout else None)
+            out = ic.conv2d_s8(*args)
+            ref = ic.conv2d_s8_plain(*args)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            cases.append({"tag": tag, "shape": [8, h, h, cin, cout, kh, stride], "out": str(out_dtype),
+                          "relu": relu, "sout": use_sout, "bit_equal": torch.equal(out, ref), "max_abs_err": err})
+            if not cases[-1]["bit_equal"]:
+                raise AssertionError(f"the int8 conv kernel disagrees with its plain version: {cases[-1]}")
+    # torch._int_mm on the unfolded input computes the same sums (the yardstick below)
+    tag, h, cin, cout, kh, stride = INT8_MIXED[0]
+    x, packed, *_ = _int8_inputs(rng, 8, h, cin, cout, kh, device)
+    ones, zeros = torch.ones(cout, device=device), torch.zeros(cout, device=device)
+    sums = ic.conv2d_s8(x, packed, kh, stride, ones, zeros, out_dtype=torch.float32).reshape(-1, cout)
+    mm = torch._int_mm(_im2col(x, kh), packed[:, : kh * kh * cin].contiguous().t())
+    if not torch.equal(mm.float(), sums):
+        raise AssertionError("torch._int_mm over the unfolded input does not give the kernel's sums")
+    return cases
+
+
+def _int8_kernel_time(rng, device):
+    """The six mixed convs at B=200, bf16 out (as the mixed forward runs them)."""
+    from tmat_torch.models.unet import _conv_nhwc
+    from tmat_torch.ops import int8_conv as ic
+
+    rows = []
+    for tag, h, cin, cout, kh, stride in INT8_MIXED:
+        x, packed, m, c, _ = _int8_inputs(rng, 200, h, cin, cout, kh, device)
+        ms = cuda_ms(lambda: ic.conv2d_s8(x, packed, kh, stride, m, c, out_dtype=torch.bfloat16), 10)
+        plain_ms = cuda_ms(lambda: ic.conv2d_s8_plain(x, packed, kh, stride, m, c, out_dtype=torch.bfloat16), 2)
+        cols, w_kn = _im2col(x, kh), packed[:, : kh * kh * cin].contiguous().t()
+        int_mm_ms = cuda_ms(lambda: torch._int_mm(cols, w_kn), 10)
+        del cols
+        xb = x.to(torch.bfloat16)
+        kb = torch.randn(cout, cin, kh, kh, device=device, dtype=torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        cudnn_ms = cuda_ms(lambda: _conv_nhwc(xb, kb, stride), 10)
+        # the mixed forward's requantisation of the bf16 input (PyTorch passes)
+        inv_sx = torch.rand(cin, device=device) + 0.5
+        requant_ms = cuda_ms(lambda: torch.clamp(torch.round(xb.float() * inv_sx), -127, 127).to(torch.int8), 10)
+        del x, xb
+        torch.cuda.empty_cache()
+        rows.append({"tag": tag, "shape": [200, h, h, cin, cout, kh, stride], "ms": ms, "plain_ms": plain_ms,
+                     "int_mm_ms": int_mm_ms, "cudnn_bf16_ms": cudnn_ms, "requant_ms": requant_ms,
+                     **conv_work(200, h, cin, cout, kh, stride, 2)})
+        rows[-1]["tops"] = rows[-1]["ops"] / ms / 1e9
+    return rows
+
+
+@contextmanager
+def count_calibrations():
+    """Counts ``models/quant.py::calibrate`` calls within the block."""
+    from tmat_torch.models import quant
+
+    calls = [0]
+    real = quant.calibrate
+
+    def counting(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    quant.calibrate = counting
+    try:
+        yield calls
+    finally:
+        quant.calibrate = real
+
+
+def phase_quant(rng, unet: dict, plate_run: dict, device, tmp: Path) -> dict:
+    """The int8 conv kernel, the quantized shipped segmentor, a calibration
+    on a copy of its checkpoint and a quantized plate. Returns the int8 and
+    down-block launches of the quantized forward and plate run."""
+    import shutil
+
+    from tmat_torch.core import defs
+    from tmat_torch.models import quant
+    from tmat_torch.models.unet import UNetXceptionPatchSegmentor, get_unet_patch_segmentor_from_cfg
+    from tmat_torch.ops import down_block as db, int8_conv as ic
+    from tmat_torch.tools.plate_pipeline import run_plate
+
+    cases = _int8_kernel_check(rng, device)
+    emit("quant_kernel_check", cases=len(cases), all_bit_equal=True,
+         shapes=sorted({c["tag"] for c in cases}), forms=len(INT8_FORMS))
+    timings = _int8_kernel_time(rng, device)
+    emit("quant_kernel_time", convs=timings, ms=sum(t["ms"] for t in timings),
+         bound_ms=sum(t["bound_ms"] for t in timings), int_mm_ms=sum(t["int_mm_ms"] for t in timings),
+         cudnn_bf16_ms=sum(t["cudnn_bf16_ms"] for t in timings), requant_ms=sum(t["requant_ms"] for t in timings),
+         ops=sum(t["ops"] for t in timings))
+
+    # the shipped segmentor, "quantize": true: the shipped sidecar's scales
+    root = Path(__file__).resolve().parent
+    with open(root / SHIPPED_CFG) as f:
+        cfg = json.load(f)
+    ckpt = defs.model_training_path(f"binary_segmentation/checkpoints/{cfg['checkpoint_file']}")
+    cfg_path = tmp / "quant_segmentor.json"
+    cfg_path.write_text(json.dumps({**cfg, "checkpoint_file": str(ckpt), "quantize": True}))
+    with count_calibrations() as calls:
+        qseg = get_unet_patch_segmentor_from_cfg(str(cfg_path), device=device)
+    if not (qseg.quantized and calls[0] == 0 and qseg.dtype == torch.bfloat16):
+        raise AssertionError(f"quantized segmentor: quantized {qseg.quantized}, {calls[0]} calibrations, "
+                             f"{qseg.dtype}")
+    batch = unet["batch"]
+    ic.launches = db.launches = 0  # the quantized forward starts here
+    pred = qseg.model(batch)
+    torch.cuda.synchronize()
+    forward_launches = (ic.launches, db.launches)  # ... and ends here
+    if forward_launches != (6, 3):
+        raise AssertionError(f"the quantized forward launched {forward_launches} int8 / down-block kernels, not (6, 3)")
+    if not (torch.isfinite(pred).all() and pred.shape == batch.shape):
+        raise AssertionError("quantized forward: non-finite or misshapen output")
+    mq, m32 = pred > 0.5, unet["mask32"]
+    iou = (mq & m32).sum().item() / max((mq | m32).sum().item(), 1)
+    if iou < QUANT_IOU:
+        raise AssertionError(f"quantized vs f32 mask IoU {iou} < {QUANT_IOU}")
+    forward_ms = cuda_ms(lambda: qseg.model(batch), 3)
+    emit("quant_unet", batch=list(batch.shape), calibrations=calls[0], launches={"int8_conv": 6, "down_block": 3},
+         mask_iou_vs_f32=iou, forward_ms=forward_ms, bf16_forward_ms=unet["forward_ms"],
+         speed_vs_bf16=unet["forward_ms"] / forward_ms)
+
+    # a calibration on the card, on a copy of the checkpoint
+    copy = tmp / "calib" / ckpt.name
+    copy.parent.mkdir()
+    shutil.copy(ckpt, copy)
+    t0 = time.perf_counter()
+    with count_calibrations() as calls:
+        UNetXceptionPatchSegmentor(cfg["patch_size"], copy, tuple(cfg["filter_counts"]), quantize=True,
+                                   device=device)
+        calib_s = time.perf_counter() - t0
+        written = quant.load_scales_for(copy)
+        UNetXceptionPatchSegmentor(cfg["patch_size"], copy, tuple(cfg["filter_counts"]), quantize=True,
+                                   device=device)
+    shipped = quant.load_scales_for(ckpt)
+    if calls[0] != 1 or written is None or set(written) != set(shipped):
+        raise AssertionError(f"calibration on a copy: {calls[0]} calibrations, sidecar written: {written is not None}")
+    rel = max(float(np.max(np.abs(written[k] - shipped[k]) / np.abs(shipped[k]))) for k in shipped)
+    if rel > QUANT_SCALE_RTOL:
+        raise AssertionError(f"the card's scales are {rel} relative off the shipped sidecar's")
+    emit("quant_calibration", seconds=calib_s, calibrations=calls[0], scales=len(written),
+         max_rel_diff_vs_shipped=rel)
+
+    # the plate of phase 5 with the quantized segmentor
+    forwards = [0]
+
+    def counted(b):
+        forwards[0] += 1
+        return qseg.model(b)
+
+    qseg._pred_fn = counted
+    config = {"image_width_microns": 1200.0}
+    plate, ids = plate_run["plate"], plate_run["ids"]
+    run_plate(plate, ids, qseg, config, device=device)  # warm
+    forwards[0] = 0
+    ic.launches = db.launches = 0  # the quantized plate run starts here
+    t0 = time.perf_counter()
+    res = run_plate(plate, ids, qseg, config, device=device)
+    wps = len(ids) / (time.perf_counter() - t0)
+    plate_launches = (ic.launches, db.launches)  # ... and ends here
+    res.pop("_timer")
+    ref = plate_run["results"]
+    if plate_launches != (6 * forwards[0], 3 * forwards[0]) or forwards[0] == 0:
+        raise AssertionError(f"{plate_launches} int8 / down-block launches for {forwards[0]} forwards")
+    area_diff = max(abs(a - b) for a, b in zip(res["area_pct"], ref["area_pct"]))
+    if area_diff > QUANT_AREA_TOL:
+        raise AssertionError(f"quantized plate area % {area_diff} points off the bf16 plate's")
+    emit("quant_plate", wells=len(ids), wells_per_sec=wps, bf16_wells_per_sec=plate_run["wells_per_sec"],
+         unet_forwards=forwards[0], max_area_pct_diff=area_diff, results=res, bf16_results=ref)
+    del qseg
+    torch.cuda.empty_cache()
+    return {"int8": forward_launches[0] + plate_launches[0], "down_block": forward_launches[1] + plate_launches[1],
+            "max_abs_err": max(c["max_abs_err"] for c in cases), "timings": timings}
+
+
+def _tree_files(root: Path) -> dict:
+    return {str(p.relative_to(root)): p.read_bytes() for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def phase_package(stacks: np.ndarray, device, tmp: Path) -> None:
+    """The bundle on the card: ``./tmat-torch compute_zproj -m fs`` on a
+    fresh build cache, byte-equal to the in-process tool; the standalone
+    bundle's ``-m max`` with no python on PATH, byte-equal too."""
+    import shutil
+
+    from PIL import Image
+
+    from tmat_torch import build
+    from tmat_torch.tools import compute_zproj
+
+    src = tmp / "pkg_in"
+    src.mkdir()
+    for i, stack in enumerate(stacks):
+        for z, sl in enumerate(stack):
+            Image.fromarray(sl).save(src / f"W{i}_z{z:02d}.tif")
+    refs = {}
+    for method in ("fs", "max"):
+        refs[method] = tmp / f"pkg_ref_{method}"
+        compute_zproj.main(argv=[str(src), str(refs[method]), "-m", method], device=device)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    runs = {}
+    for kind, flags in (("bundle", []), ("standalone", ["--standalone"])):
+        out = tmp / f"pkg_{kind}"
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "tmat_torch.packaging", str(out), *flags], cwd=str(tmp),
+                              env=_child_env(), capture_output=True, text=True, timeout=600)
+        build_s = time.perf_counter() - t0
+        packaging_out = proc.stdout
+        if proc.returncode != 0:
+            raise AssertionError(f"packaging {kind} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+        nbytes = sum(p.stat().st_size for p in out.rglob("*") if p.is_file())
+        run_env = {**env, "TMAT_TORCH_BUILD_DIR": str(tmp / f"pkg_build_{kind}"),
+                   "TMAT_TPU_BASE_DIR": str(_empty_base(tmp / f"pkg_base_{kind}")), "TMPDIR": str(tmp)}
+        if kind == "bundle":
+            method = "fs"
+            run_env["TMAT_TORCH_PYTHON"] = sys.executable
+        else:  # bash, dirname and env, and the compilers a first build needs; no python
+            method = "max"
+            cleanbin = tmp / "pkg_cleanbin"
+            cleanbin.mkdir()
+            for tool in ("bash", "dirname", "env", "g++", "gcc"):
+                os.symlink(shutil.which(tool), cleanbin / tool)
+            os.symlink(build.nvcc_path(), cleanbin / "nvcc")
+            run_env = {"HOME": str(tmp), "PATH": str(cleanbin), "TERM": "dumb",
+                       **{k: run_env[k] for k in ("TMAT_TORCH_BUILD_DIR", "TMAT_TPU_BASE_DIR", "TMPDIR")}}
+            if any(cleanbin.glob("python*")):
+                raise AssertionError("the clean PATH holds a python")
+        result = tmp / f"pkg_out_{kind}"
+        t0 = time.perf_counter()
+        proc = subprocess.run([str(out / "tmat-torch"), "compute_zproj", str(src), str(result), "-m", method],
+                              cwd=str(tmp), env=run_env, capture_output=True, text=True, timeout=600)
+        run_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"{kind} compute_zproj exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        got, want = _tree_files(result), _tree_files(refs[method])
+        if not want or got != want:
+            raise AssertionError(f"{kind} compute_zproj -m {method} outputs differ from the in-process tool's: "
+                                 f"{sorted(set(got) ^ set(want))}")
+        built = sorted(p.name.split("-")[0] for p in (tmp / f"pkg_build_{kind}").glob("lib*.so"))
+        runs[kind] = {"bytes": nbytes, "build_s": build_s, "run_s": run_s, "method": method,
+                      "outputs": len(got), "libraries_built": built,
+                      "packaging_said": [ln for ln in packaging_out.splitlines() if ln.strip()][-2:]}
+        if kind == "standalone":
+            shutil.rmtree(out, ignore_errors=True)
+    if runs["bundle"]["libraries_built"] != ["libfocus_stack"]:
+        raise AssertionError(f"the bundle's fs run built {runs['bundle']['libraries_built']}, not the focus kernel")
+    emit("package", stacks=len(stacks), outputs_byte_equal=True, **runs)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--wells", type=int, default=8)
@@ -1461,8 +1788,9 @@ def run_phases(args, tmp: Path, device, kind: str, smi: str) -> int:
                                             device=device)
     if (seg.dtype, seg.tta, seg.patch_size) != (torch.bfloat16, 8, 320):
         raise AssertionError(f"unexpected segmentor {(seg.dtype, seg.tta, seg.patch_size)}")
-    phase_unet(seg, synthetic_plate(1, rng)[0], device)
-    launches = phase_plate(seg, args.wells, rng, device)
+    unet = phase_unet(seg, synthetic_plate(1, rng)[0], device)
+    plate_run = phase_plate(seg, args.wells, rng, device)
+    launches = plate_run["launches"]
     focus_cases = phase_focus_check(rng, device)
     focus_timings, empty_launch_ms = phase_focus_time(rng, device)
     fs_plate, sharp, rings = focus_plate(args.wells, rng)
@@ -1486,6 +1814,8 @@ def run_phases(args, tmp: Path, device, kind: str, smi: str) -> int:
         inv_stacks, synthetic_plate(args.wells, profile_rng),
         [well.max(axis=0) for well in synthetic_plate(args.wells, profile_rng)], tmp)
     train_launches = phase_train(tmp, device)
+    quant_run = phase_quant(rng, unet, plate_run, device, tmp)
+    phase_package(fs_plate[:4], device, tmp)
 
     one_stack = focus_timings[0]  # (1, 8, 1024, 1024): what both paths launch
     kernels = [{
@@ -1494,11 +1824,12 @@ def run_phases(args, tmp: Path, device, kind: str, smi: str) -> int:
         "source": "tmat_torch/csrc/down_block.cu",
         "replaces": "tmat_tpu/ops/pallas_unet.py:245",
         "launches": (launches + fs_launches["down_block"] + branch_launches + profile_launches
-                     + sum(dist_launches.values()) + train_launches),
+                     + sum(dist_launches.values()) + train_launches + quant_run["down_block"]),
         "launches_by_path": {"plate": launches, "plate_fs": fs_launches["down_block"],
                              "branches": branch_launches, "profile": profile_launches,
                              "distributed_branches_2d": dist_launches["branches_2d"],
-                             "distributed_plate": dist_launches["plate"], "train": train_launches},
+                             "distributed_plate": dist_launches["plate"], "train": train_launches,
+                             "quant": quant_run["down_block"]},
         "max_abs_err": max(e["max_abs_err"] for e in errors),
         # one UNet forward of 200 patches: the three production blocks
         "ms": sum(t["ms"] for t in timings),
@@ -1527,6 +1858,26 @@ def run_phases(args, tmp: Path, device, kind: str, smi: str) -> int:
         "bound_ms": one_stack["bound_ms"],
         "bound_by": one_stack["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "int8_conv",
+        "route": "cuda",
+        "source": "tmat_torch/csrc/int8_conv.cu",
+        # no Pallas kernel: the JAX package's s8 x s8 -> s32 lax convolution
+        "replaces": "tmat_tpu/models/quant.py:629",
+        "launches": quant_run["int8"],
+        "launches_by_path": {"quant": quant_run["int8"]},
+        "max_abs_err": quant_run["max_abs_err"],
+        # the six int8 up convs of one mixed forward of 200 patches (bf16 out)
+        "ms": sum(t["ms"] for t in quant_run["timings"]),
+        "plain_ms": sum(t["plain_ms"] for t in quant_run["timings"]),
+        "bound_ms": sum(t["bound_ms"] for t in quant_run["timings"]),
+        "bound_by": ("operations" if sum(t["ops_ms"] for t in quant_run["timings"])
+                     >= sum(t["bytes_ms"] for t in quant_run["timings"]) else "bytes"),
+        # torch._int_mm over the unfolded input (its s32 products only)
+        "library_ms": sum(t["int_mm_ms"] for t in quant_run["timings"]),
+        "cudnn_bf16_ms": sum(t["cudnn_bf16_ms"] for t in quant_run["timings"]),
+        "convs": [{"tag": t["tag"], "ms": t["ms"], "bound_ms": t["bound_ms"], "int_mm_ms": t["int_mm_ms"],
+                   "cudnn_bf16_ms": t["cudnn_bf16_ms"]} for t in quant_run["timings"]],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

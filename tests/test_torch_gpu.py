@@ -545,3 +545,127 @@ def test_frozen_resnet_step_on_the_card(cuda):
         T.make_classifier_train_step(ft)(T.init_train_state(net, ft), x, y)
         grads[name] = {k: p.grad.detach().cpu() for k, p in net.named_parameters()}
     _grads_close(grads["card"], grads["cpu"])
+
+
+# (B, H, Cin, Cout, kh, stride) of the int8 conv: the six mixed up convs of
+# the production segmentor (u0-u2), the entry conv, a 1x1/s2 residual, and
+# odd shapes (a ragged last tile in M and N, Cin off a multiple of 16)
+INT8_SHAPES = [(2, 20, 512, 512, 3, 1), (2, 40, 512, 256, 3, 1), (2, 40, 256, 256, 3, 1),
+               (2, 80, 256, 128, 3, 1), (2, 80, 128, 128, 3, 1), (2, 320, 1, 64, 3, 2),
+               (2, 160, 64, 128, 1, 2), (3, 9, 5, 70, 3, 2), (2, 13, 48, 24, 1, 1), (1, 7, 16, 8, 3, 1)]
+INT8_FORMS = [(torch.int8, False, False), (torch.int8, True, False), (torch.bfloat16, False, False),
+              (torch.float32, False, False), (torch.float32, True, True), (torch.bfloat16, False, True)]
+
+
+def int8_case(shape, device, seed=0):
+    from tmat_torch.ops import int8_conv as ic
+
+    b, h, cin, cout, kh, _ = shape
+    rng = np.random.RandomState(seed)
+    x = torch.tensor(rng.randint(-127, 128, (b, h, h, cin)).astype(np.int8), device=device)
+    packed = ic.pack_weights(rng.randint(-127, 128, (kh, kh, cin, cout)).astype(np.int8)).to(device)
+    # m keeps sums of up to 9 * 512 * 127**2 within a few hundred int8 steps
+    vecs = [torch.tensor(v.astype(np.float32), device=device)
+            for v in (rng.rand(cout) * 2e-4, rng.randn(cout), rng.rand(cout) * 3)]
+    return x, packed, *vecs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", INT8_FORMS, ids=lambda f: f"{str(f[0]).split('.')[-1]}-relu{int(f[1])}-sout{int(f[2])}")
+@pytest.mark.parametrize("shape", INT8_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_int8_conv_kernel_matches_plain(cuda, shape, form):
+    """Bit-equal: exact int32 sums, the epilogue rounded at the same points
+    (the kernel is built without FMA contraction)."""
+    from tmat_torch.ops import int8_conv as ic
+
+    x, packed, m, c, sout = int8_case(shape, cuda)
+    out_dtype, relu, use_sout = form
+    args = (x, packed, shape[4], shape[5], m, c, relu, out_dtype, sout if use_sout else None)
+    before = ic.launches
+    out = ic.conv2d_s8(*args)
+    torch.cuda.synchronize()
+    assert ic.launches == before + 1
+    ref = ic.conv2d_s8_plain(*args)
+    assert out.dtype == out_dtype and out.shape == ref.shape
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.gpu
+def test_int8_conv_takes_an_unaligned_batch(cuda):
+    """A batch view 16 bytes off alignment goes byte by byte, still equal."""
+    from tmat_torch.ops import int8_conv as ic
+
+    x, packed, m, c, _ = int8_case((2, 12, 32, 64, 3, 1), cuda)
+    flat = torch.empty(x.numel() + 1, dtype=torch.int8, device=cuda)
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16
+    assert torch.equal(ic.conv2d_s8(shifted, packed, 3, 1, m, c), ic.conv2d_s8_plain(x, packed, 3, 1, m, c))
+
+
+@pytest.mark.gpu
+def test_int8_conv_wrapper_refuses(cuda):
+    from tmat_torch.ops import int8_conv as ic
+
+    x, packed, m, c, _ = int8_case((1, 8, 16, 8, 3, 1), cuda)
+    with pytest.raises(ValueError, match="packed weights on"):
+        ic.conv2d_s8(x, packed.cpu(), 3, 1, m, c)
+    with pytest.raises(ValueError, match="not contiguous"):
+        ic.conv2d_s8(x.transpose(1, 2), packed, 3, 1, m, c)
+    with pytest.raises(ValueError, match="aligned"):
+        wide = torch.zeros(packed.numel() + 1, dtype=torch.int8, device=cuda)
+        ic.conv2d_s8(x, wide[1:].view(packed.shape), 3, 1, m, c)
+    with pytest.raises(ValueError, match="kernel sizes"):
+        ic.conv2d_s8(x, packed, 5, 1, m, c)
+
+
+@pytest.mark.gpu
+def test_quantized_segmentor_launches_the_int8_kernel(cuda, tmp_path):
+    """A small quantized segmentor on the card: 6 int8 and (here) 2 down-block
+    launches per forward. In float32 (TF32 off) its probabilities are within
+    0.02 of the CPU's mixed forward (a requantised input may round the other
+    way where the card's convs sum in another order); in bfloat16 they are
+    finite and within 0.05 of float32 on average."""
+    from tmat_torch.models import quant as Q
+    from tmat_torch.ops import int8_conv as ic
+
+    rng = np.random.RandomState(2)
+    fc = (16, 32, 64)
+    x = torch.tensor(rng.rand(3, 64, 64, 1).astype(np.float32))
+
+    def arr(*shape, scale):
+        return (rng.randn(*shape) * scale).astype(np.float32)
+
+    folded = {"_n": {"down": 2, "up": 3}, "entry": {"w": arr(3, 3, 1, 16, scale=0.3), "b": arr(16, scale=0.1),
+                                                    "kind": "conv", "stride": 2}}
+    for i, (ci, co) in enumerate(zip(fc[:-1], fc[1:])):
+        folded.update({f"d{i}.dw1": {"w": arr(3, 3, 1, ci, scale=0.3), "b": None, "kind": "dw", "stride": 1},
+                       f"d{i}.pw1": {"w": arr(1, 1, ci, co, scale=ci ** -0.5), "b": arr(co, scale=0.1),
+                                     "kind": "conv", "stride": 1},
+                       f"d{i}.dw2": {"w": arr(3, 3, 1, co, scale=0.3), "b": None, "kind": "dw", "stride": 1},
+                       f"d{i}.pw2": {"w": arr(1, 1, co, co, scale=co ** -0.5), "b": arr(co, scale=0.1),
+                                     "kind": "conv", "stride": 1},
+                       f"d{i}.res": {"w": arr(1, 1, ci, co, scale=ci ** -0.5), "b": arr(co, scale=0.1),
+                                     "kind": "conv", "stride": 2}})
+    prev = fc[-1]
+    for j, f in enumerate(reversed(fc)):
+        for k, cin in ((1, prev), (2, f)):
+            folded[f"u{j}.t{k}"] = {"w": arr(3, 3, cin, f, scale=(9 * cin) ** -0.5), "b": arr(f, scale=0.1),
+                                    "kind": "convT", "stride": 1}
+        folded[f"u{j}.res"] = {"w": arr(1, 1, prev, f, scale=prev ** -0.5), "b": arr(f, scale=0.1),
+                               "kind": "conv", "stride": 1}
+        prev = f
+    folded["head"] = {"w": arr(3, 3, 16, 1, scale=0.1), "b": arr(1, scale=0.1), "kind": "conv", "stride": 1}
+    scales = Q.calibrate(folded, x.numpy(), "cpu")
+    qp = Q.quantize_mixed(folded, scales)
+    ref = Q.forward_mixed(qp, x, torch.float32)
+    outs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = Q.MixedUNetXception(qp, dtype).to(cuda).eval()
+        before_i, before_d = ic.launches, db.launches
+        outs[dtype] = model(x.to(cuda)).float().cpu()
+        torch.cuda.synchronize()
+        assert (ic.launches - before_i, db.launches - before_d) == (6, 2)
+        assert torch.isfinite(outs[dtype]).all() and outs[dtype].shape == x.shape
+    assert (outs[torch.float32] - ref).abs().max().item() <= 0.02
+    assert (outs[torch.bfloat16] - ref).abs().mean().item() <= 0.05

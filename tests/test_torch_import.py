@@ -49,7 +49,8 @@ def test_modules_import_without_forbidden_packages():
             "tmat_torch.models.augment", "tmat_torch.models.data",
             "tmat_torch.models.eval_segmentation", "tmat_torch.models.hp_search",
             "tmat_torch.models.bo", "tmat_torch.models.convert",
-            "tmat_torch.models.layers"} <= set(MODULES)
+            "tmat_torch.models.layers", "tmat_torch.models.quant", "tmat_torch.ops.int8_conv",
+            "tmat_torch.packaging"} <= set(MODULES)
 
 
 def test_front_doors_import_no_jax_triton_or_tk():
@@ -97,13 +98,13 @@ def no_cuda():
                                    "inv_depth_ensemble", "inv_depth_prep", "resnet", "cli", "gui",
                                    "train_segmentation", "train_invasion", "hp_search",
                                    "eval_segmentation", "unet_trainable", "resnet_trainable",
-                                   "invasion_data"])
+                                   "invasion_data", "quant_calibrate", "quant_pred_fn"])
 def test_entry_points_refuse_without_cuda(no_cuda, entry, tmp_path):
     from tmat_torch.device import resolve_device
     from tmat_torch.models.unet import UNetXceptionPatchSegmentor
     from tmat_torch import cli, gui
     from tmat_torch.models.preprocess import prep_inv_depth_imgs_hybrid
-    from tmat_torch.models import (data, eval_segmentation, hp_search, train_invasion,
+    from tmat_torch.models import (data, eval_segmentation, hp_search, quant, train_invasion,
                                    train_segmentation)
     from tmat_torch.models.resnet import build_resnet50_tl, build_trainable_resnet50_tl
     from tmat_torch.models.unet import build_unet_xception
@@ -140,6 +141,8 @@ def test_entry_points_refuse_without_cuda(no_cuda, entry, tmp_path):
         "resnet_trainable": lambda: build_trainable_resnet50_tl(1, (32, 32, 3)),
         "invasion_data": lambda: data.InvasionDataGenerator({0: [], 1: []}, {}, 2, (8, 8),
                                                             np.random.RandomState(0)),
+        "quant_calibrate": lambda: quant.calibrate({}, np.zeros((1, 8, 8, 1), np.float32)),
+        "quant_pred_fn": lambda: quant.make_quant_pred_fn({}, (8, 16), scales={}),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

@@ -116,3 +116,31 @@ def test_member_loads_in_both_packages(tmp_path, dtype):
     out = ensemble_forward([member], torch.tensor(x))[0].numpy()
     np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
     assert 0 < ref.min() and ref.max() < 1 and np.ptp(ref) > 1e-3
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8, np.float16])
+def test_chunked_leaves_round_trip_with_flax(tmp_path, monkeypatch, dtype):
+    """Flax splits array leaves over ``MAX_CHUNK_SIZE`` bytes into chunks;
+    with the limit lowered (in both packages) the port reads the file JAX
+    writes and writes the same bytes, and a leaf at the limit stays whole."""
+    import flax.serialization as fs
+
+    monkeypatch.setattr(fs, "MAX_CHUNK_SIZE", 100)
+    monkeypatch.setattr(P, "_MAX_CHUNK_SIZE", 100)
+    rng = np.random.RandomState(1)
+    tree = {"params": {"big": (rng.rand(7, 11, 3) * 200).astype(dtype),
+                       "edge": (rng.rand(100 // np.dtype(dtype).itemsize) * 9).astype(dtype),
+                       "small": np.arange(5, dtype=np.int32)},
+            "top": (rng.rand(60) * 9).astype(dtype)}
+    jax_save(tmp_path / "jax.msgpack", tree)
+    data = (tmp_path / "jax.msgpack").read_bytes()
+    assert b"__msgpack_chunked_array__" in data
+    back = P.load_variables(tmp_path / "jax.msgpack")
+    for key in ("big", "edge", "small"):
+        np.testing.assert_array_equal(back["params"][key], tree["params"][key].astype(back["params"][key].dtype))
+    np.testing.assert_array_equal(back["top"], tree["top"].astype(back["top"].dtype))
+    assert back["params"]["big"].shape == (7, 11, 3)
+    P.save_params(tmp_path / "port.msgpack", tree)
+    assert (tmp_path / "port.msgpack").read_bytes() == data
+    restored = fs.msgpack_restore(data)
+    np.testing.assert_array_equal(restored["params"]["big"], tree["params"]["big"])

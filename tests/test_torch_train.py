@@ -396,7 +396,7 @@ def test_resume_bitexact(tmp_path):
 
     tree = load_variables(path)
     assert set(tree) == {"params", "batch_stats", "opt_state", "step"}
-    assert tree["opt_state"]["count"] == 2
+    assert tree["opt_state"]["0"]["count"] == 2  # optax.adamw's state: scale_by_adam first
 
 
 def test_fit_early_stopping_checkpoint_and_best_copy(tmp_path):

@@ -154,6 +154,8 @@ def configure(target_base_dir: str = "") -> Path:
     if base_str.startswith(home):
         base_str = "~" + base_str[len(home):]
     cfg[defs.PKG_NAME] = {"base_dir": base_str}
+    # a bundle (packaging.py) has no tmat_tpu/ beside tmat_torch/ until now
+    Path(defs.PKG_CFG_PATH).parent.mkdir(parents=True, exist_ok=True)
     with open(defs.PKG_CFG_PATH, "w") as fp:
         cfg.write(fp)
 

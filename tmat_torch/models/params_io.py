@@ -11,7 +11,9 @@ small pure-Python decoder for exactly that subset, so the port needs no
 float32. ``to_msgpack`` encodes a tree into the bytes that
 ``flax.serialization.to_bytes`` gives for it (the same msgpack forms, key
 order and ext payloads), and ``save_params`` writes them to a file, with
-an optional down-cast of the float leaves.
+an optional down-cast of the float leaves. Array leaves over Flax's
+``MAX_CHUNK_SIZE`` (1 GiB) are written and read in Flax's chunked form
+(``_chunk`` / ``_unchunk``).
 
 ``from_flax_variables`` turns such a tree of numpy arrays into the port's
 BN-folded UNet weights, ``from_flax_resnet_variables`` into the
@@ -106,8 +108,10 @@ def _container(r: _Reader, kind: str, n: int):
     for _ in range(n):
         k = _decode(r)
         out[k] = _decode(r)
-    if "__msgpack_chunked_array__" in out:
-        raise ValueError("chunked (>1 GB) array leaves are not supported")
+    if "__msgpack_chunked_array__" in out:  # flax.serialization._unchunk
+        shape = tuple(out["shape"][str(i)] for i in range(len(out["shape"])))
+        chunks = [out["chunks"][str(i)] for i in range(len(out["chunks"]))]
+        return np.concatenate(chunks).reshape(shape)
     return out
 
 
@@ -193,8 +197,6 @@ def _ndarray_payload(arr: np.ndarray) -> bytes:
     name, C-order bytes)."""
     if arr.dtype.hasobject or arr.dtype.isalignedstruct:
         raise ValueError("object and structured dtypes cannot be serialized")
-    if arr.nbytes > _MAX_CHUNK_SIZE:
-        raise ValueError("array leaves over 1 GB (chunked by Flax) are not supported")
     out = bytearray()
     _uint(out, 3, 0x90, 15, _ARRAY)
     _uint(out, arr.ndim, 0x90, 15, _ARRAY)
@@ -215,6 +217,15 @@ def _pack_ext(out: bytearray, code: int, payload: bytes) -> None:
     out += payload
 
 
+def _chunked(arr: np.ndarray) -> Dict[str, Any]:
+    """``flax.serialization._chunk``: an array over ``_MAX_CHUNK_SIZE`` bytes
+    as a map of its shape and its flat chunks."""
+    size = max(1, int(_MAX_CHUNK_SIZE / arr.dtype.itemsize))
+    flat = arr.reshape(-1)
+    return {"__msgpack_chunked_array__": True, "shape": {str(i): d for i, d in enumerate(arr.shape)},
+            "chunks": {str(i): flat[j: j + size] for i, j in enumerate(range(0, flat.size, size))}}
+
+
 def _pack(out: bytearray, obj: Any) -> None:
     # the order of the checks is msgpack's with strict types: a numpy
     # scalar (np.float64 is a float) is an ext record, a bool no integer
@@ -227,6 +238,8 @@ def _pack(out: bytearray, obj: Any) -> None:
         _pack(out, {str(i): v for i, v in enumerate(obj)})
     elif isinstance(obj, torch.Tensor):
         _pack(out, obj.detach().cpu().numpy())
+    elif isinstance(obj, np.ndarray) and obj.size * obj.dtype.itemsize > _MAX_CHUNK_SIZE:
+        _pack(out, _chunked(obj))
     elif isinstance(obj, np.ndarray):
         _pack_ext(out, _EXT_NDARRAY, _ndarray_payload(obj))
     elif isinstance(obj, np.generic):

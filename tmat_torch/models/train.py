@@ -24,8 +24,11 @@ What differs in form, not in result:
 
 Metrics stay on the device until an epoch ends. Checkpoints are Flax trees
 (``params_io.save_params``): a best-weight checkpoint loads in either
-package; a train-state checkpoint (with the optimizer's moments) loads in
-this one.
+package, and so does a train-state checkpoint, whose ``opt_state`` is the
+state dict of the optax transformation the JAX trainer builds for the same
+run (``Optimizer.state_tree``), with every dict's keys sorted as a jitted
+JAX step leaves them: the file is byte-equal to
+``flax.serialization.to_bytes`` of that JAX ``TrainState``.
 """
 
 from __future__ import annotations
@@ -129,8 +132,9 @@ def cosine_decay_restarts(initial_lr: float, first_decay_steps: int, t_mul: floa
 @dataclass(frozen=True)
 class Optimizer:
     """Adam with decoupled weight decay under a learning rate or schedule:
-    what an optax ``adam`` / ``adamw`` transformation names. ``frozen``
-    names a submodule whose parameters it does not train."""
+    what an optax ``adam`` / ``adamw`` transformation names (``transform``).
+    ``frozen`` names a submodule whose parameters it does not train: optax's
+    ``multi_transform`` of the adam and ``set_to_zero``."""
 
     learning_rate: Union[float, Callable[[int], float]]
     b1: float = 0.9
@@ -138,10 +142,45 @@ class Optimizer:
     eps: float = 1e-8
     weight_decay: float = 0.0
     frozen: Optional[str] = None
+    transform: str = "adam"
 
     def lr(self, step: int) -> float:
         lr = self.learning_rate
         return float(lr(step)) if callable(lr) else float(lr)
+
+    def state_tree(self, adam_state: Dict[str, Any]) -> Dict[str, Any]:
+        """The state dict of this optax transformation around ``adam_state``
+        (``scale_by_adam``'s ``{"count", "mu", "nu"}``): ``adam`` is
+        ``chain(scale_by_adam, scale_by_learning_rate)``, ``adamw`` puts
+        ``add_decayed_weights`` between them; a schedule's state is its
+        count, a constant rate's is empty."""
+        schedule = {"count": adam_state["count"]} if callable(self.learning_rate) else {}
+        if self.frozen is not None:
+            return {"inner_states": {"freeze": {"inner_state": {}},
+                                     "train": {"inner_state": {"0": adam_state, "1": schedule}}}}
+        if self.transform == "adamw":
+            return {"0": adam_state, "1": {}, "2": schedule}
+        return {"0": adam_state, "1": schedule}
+
+    def adam_state(self, tree: Dict[str, Any]) -> Dict[str, Any]:
+        """``scale_by_adam``'s state out of a ``state_tree``; a tree of
+        another transformation raises."""
+        marker = {"count": None}
+        found = []
+
+        def fits(expected, got) -> bool:
+            if expected is marker:
+                found.append(got)
+                return isinstance(got, dict) and set(got) == {"count", "mu", "nu"}
+            if isinstance(expected, dict):
+                return (isinstance(got, dict) and set(got) == set(expected)
+                        and all(fits(expected[k], got[k]) for k in expected))
+            return not isinstance(got, dict)  # the schedule's count
+
+        if not fits(self.state_tree(marker), tree):
+            name = "multi_transform" if self.frozen is not None else self.transform
+            raise ValueError(f"the optimizer state is not that of optax's {name} with this learning rate")
+        return found[0]
 
     def init(self, module: nn.Module) -> torch.optim.Optimizer:
         """A fresh optimizer (moments 0, count 0) over ``module``'s trained
@@ -164,16 +203,18 @@ def adam(learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -
 def adamw(learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
           weight_decay: float = 1e-4) -> Optimizer:
     """``optax.adamw``."""
-    return Optimizer(learning_rate, b1, b2, eps, weight_decay)
+    return Optimizer(learning_rate, b1, b2, eps, weight_decay, transform="adamw")
 
 
 @dataclass
 class TrainState:
-    """A module, its optimizer and the number of updates made."""
+    """A module, its optimizer (and the ``Optimizer`` that made it) and the
+    number of updates made."""
 
     module: nn.Module
     opt: Optional[torch.optim.Optimizer]
     step: int = 0
+    tx: Optional[Optimizer] = None
 
     def copy(self) -> "TrainState":
         """The module's weights and statistics as they are now (a deep copy,
@@ -185,7 +226,7 @@ class TrainState:
 
 
 def init_train_state(module: nn.Module, tx: Optimizer) -> TrainState:
-    return TrainState(module, tx.init(module), 0)
+    return TrainState(module, tx.init(module), 0, tx)
 
 
 def _device(module: nn.Module) -> torch.device:
@@ -288,27 +329,58 @@ def _trained(state: TrainState):
     return [(names[p], p) for group in state.opt.param_groups for p in group["params"]]
 
 
+def _sorted(tree: Any) -> Any:
+    """``tree`` with every dict's keys sorted, as a jitted JAX step returns
+    its state."""
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def _count(n: int) -> np.ndarray:
+    """A count as a JAX step leaves it: a 0-d int32 array."""
+    return np.asarray(n, np.int32)
+
+
 def save_train_state(path, state: TrainState) -> None:
-    """Params, BN statistics, the optimizer's moments (``mu``, ``nu`` under
-    the parameters' Flax paths) and count, and the step, in one file."""
+    """Params, BN statistics, the optimizer's state and the step, in one
+    file: the bytes of ``flax.serialization.to_bytes`` of the JAX
+    ``TrainState`` that holds the same values after a step. The moments sit
+    under the parameters' Flax paths; a frozen parameter's are optax's
+    masked node, an empty map."""
+    if state.tx is None:
+        raise ValueError("the train state has no Optimizer (make it with init_train_state)")
+    trained = dict(_trained(state))
     mu, nu, count = {}, {}, 0
-    for name, p in _trained(state):
+    for name, p in state.module.named_parameters():
+        if name not in trained:
+            mu[name] = nu[name] = {}
+            continue
         s = state.opt.state.get(p)
         if s:
             mu[name], nu[name], count = s["exp_avg"], s["exp_avg_sq"], int(s["step"])
-    tree = flax_variables(state.module)
-    tree["opt_state"] = {"mu": nest_tree(mu), "nu": nest_tree(nu), "count": count}
-    tree["step"] = int(state.step)
-    save_params(path, tree)
+        else:
+            mu[name] = nu[name] = torch.zeros_like(p)
+    adam_state = {"count": _count(count), "mu": nest_tree(mu), "nu": nest_tree(nu)}
+    variables = flax_variables(state.module)
+    # the JAX save_train_state's own order, each part as a jitted step leaves it
+    save_params(path, {"params": _sorted(variables["params"]),
+                       "batch_stats": _sorted(variables["batch_stats"]),
+                       "opt_state": _sorted(state.tx.state_tree(adam_state)),
+                       "step": _count(state.step)})
 
 
 def load_train_state(path, template_state: TrainState) -> TrainState:
-    """Load a ``save_train_state`` file into ``template_state`` (a module of
-    the same architecture and an optimizer from the same ``Optimizer``)."""
+    """Load a train-state file of either package into ``template_state`` (a
+    module of the same architecture and the optimizer ``init_train_state``
+    made from the ``Optimizer`` that wrote the file)."""
+    if template_state.tx is None:
+        raise ValueError("the template state has no Optimizer (make it with init_train_state)")
     tree = load_variables(path)
     load_flax_variables(template_state.module, tree)
-    mu, nu = flatten_tree(tree["opt_state"]["mu"]), flatten_tree(tree["opt_state"]["nu"])
-    count = float(tree["opt_state"]["count"])
+    adam_state = template_state.tx.adam_state(tree["opt_state"])
+    mu, nu = flatten_tree(adam_state["mu"]), flatten_tree(adam_state["nu"])
+    count = float(adam_state["count"])
     sd = template_state.opt.state_dict()
     sd["state"] = {
         i: {"step": torch.tensor(count), "exp_avg": torch.tensor(mu[name]),

@@ -27,6 +27,7 @@ pool); a trained model reaches inference by ``layers.flax_variables`` ->
 from __future__ import annotations
 
 import json
+import os
 from pathlib import Path
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -41,18 +42,12 @@ from tmat_torch.models.layers import BatchNorm, Conv, init_kernels
 from tmat_torch.models.params_io import from_flax_variables, load_variables
 from tmat_torch.ops.down_block import (BIAS_KEYS, WEIGHT_KEYS, _depthwise, _maxpool3x3s2, down_block,
                                        down_block_plain)
+from tmat_torch.ops.int8_conv import same_pads as _same_pads
 from tmat_torch.ops.resize import resize, target_shape_for_ratio
 from tmat_torch.ops.tiled import predict_img_with_smooth_windowing
 
 
-def _same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
-    """TF/Flax SAME padding (before, after) of one spatial dim."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + k - size, 0)
-    return total // 2, total - total // 2
-
-
-def _conv_nhwc(x: torch.Tensor, k_oihw: torch.Tensor, stride: int) -> torch.Tensor:
+def _conv_nhwc(x: torch.Tensor, k_oihw: torch.Tensor, stride: int, groups: int = 1) -> torch.Tensor:
     """SAME conv of an NHWC tensor; the result is NHWC-contiguous. The conv
     runs in the channels-last layout (the NCHW view of an NHWC tensor, and
     kernels stored channels-last), so nothing is copied between layouts."""
@@ -60,9 +55,9 @@ def _conv_nhwc(x: torch.Tensor, k_oihw: torch.Tensor, stride: int) -> torch.Tens
     (pt, pb), (pl, pr) = _same_pads(x.shape[1], kh, stride), _same_pads(x.shape[2], kw, stride)
     xc = x.permute(0, 3, 1, 2)
     if (pt, pl) == (pb, pr):
-        y = F.conv2d(xc, k_oihw, stride=stride, padding=(pt, pl))
+        y = F.conv2d(xc, k_oihw, stride=stride, padding=(pt, pl), groups=groups)
     else:
-        y = F.conv2d(F.pad(xc, (pl, pr, pt, pb)), k_oihw, stride=stride)
+        y = F.conv2d(F.pad(xc, (pl, pr, pt, pb)), k_oihw, stride=stride, groups=groups)
     return y.permute(0, 2, 3, 1).contiguous()
 
 
@@ -82,7 +77,9 @@ class UNetXception(nn.Module):
 
     ``folded`` is ``params_io.from_flax_variables``' output. Weights are
     held in the compute ``dtype``; biases of the down blocks stay float32
-    (the kernel adds them to f32 sums).
+    (the kernel adds them to f32 sums). An up conv's kernel may be None
+    where a subclass's ``up_conv`` computes that conv otherwise
+    (``models/quant.py::MixedUNetXception``).
     """
 
     def __init__(self, folded: Dict[str, Any], dtype: torch.dtype = torch.float32,
@@ -97,6 +94,8 @@ class UNetXception(nn.Module):
 
         def conv_kernel(k_hwio):
             """(kh, kw, in, out) -> OIHW, stored channels-last."""
+            if k_hwio is None:
+                return None
             k = torch.as_tensor(np.ascontiguousarray(np.transpose(k_hwio, (3, 2, 0, 1))))
             return k.to(dtype).contiguous(memory_format=torch.channels_last)
 
@@ -120,6 +119,10 @@ class UNetXception(nn.Module):
     def down_weights(self, i: int) -> Dict[str, torch.Tensor]:
         return {k: getattr(self, f"down{i}_{k}") for k in WEIGHT_KEYS}
 
+    def up_conv(self, j: int, i: int, h: torch.Tensor) -> torch.Tensor:
+        """Up block ``j``'s ``i``-th 3x3 conv (1 or 2) with its bias."""
+        return _conv_nhwc(h, getattr(self, f"up{j}_k{i}"), 1) + getattr(self, f"up{j}_b{i}")
+
     @torch.no_grad()
     def forward(self, batch: torch.Tensor, plain_down: bool = False) -> torch.Tensor:
         """(B, H, W, 1) -> (B, H, W, 1) float32 probabilities.
@@ -132,10 +135,8 @@ class UNetXception(nn.Module):
             x = block(x, self.down_weights(i), first=(i == 0))
         for j in range(self.n_up):
             prev = x
-            h = torch.relu(x)
-            h = _conv_nhwc(h, getattr(self, f"up{j}_k1"), 1) + getattr(self, f"up{j}_b1")
-            h = torch.relu(h)
-            h = _conv_nhwc(h, getattr(self, f"up{j}_k2"), 1) + getattr(self, f"up{j}_b2")
+            h = torch.relu(self.up_conv(j, 1, torch.relu(x)))
+            h = self.up_conv(j, 2, h)
             r = _pointwise(prev, getattr(self, f"up{j}_wr"), getattr(self, f"up{j}_br"))
             x = _upsample2(h + r)  # = up(h) + up(r): the upsample only copies
         y = (_conv_nhwc(x, self.head_k, 1) + self.head_b).float()
@@ -275,6 +276,12 @@ class UNetXceptionPatchSegmentor:
     Lanczos downsample by ``ds_ratio``, optional mean/std normalisation,
     spline-window tiling (subdivisions 2, ``tta`` dihedral variants),
     nearest upsample back to the input size. ``device=None`` means CUDA.
+
+    ``quantize`` (None reads ``TMAT_TPU_INT8 == "1"``) swaps the forward
+    for ``models/quant.py``'s mixed int8 one (``.quantized``): its scales
+    come from the checkpoint's sidecar when it matches the checkpoint, else
+    from a calibration on the segmentor's device, then saved beside the
+    checkpoint where that can be written.
     """
 
     def __init__(
@@ -289,6 +296,7 @@ class UNetXceptionPatchSegmentor:
         dtype: Optional[torch.dtype] = None,
         tta: int = 8,
         device: DeviceLike = None,
+        quantize: Optional[bool] = None,
     ):
         if checkpoint_file is None:
             raise ValueError("the segmentor needs a checkpoint file")
@@ -300,8 +308,27 @@ class UNetXceptionPatchSegmentor:
         self.norm_mean = norm_mean
         self.norm_std = norm_std
         self.ds_ratio = ds_ratio
-        folded = from_flax_variables(load_variables(checkpoint_file), filter_counts)
-        self.model = UNetXception(folded, self.dtype).to(self.device).eval()
+        variables = load_variables(checkpoint_file)
+        if quantize is None:
+            quantize = os.environ.get("TMAT_TPU_INT8", "0") == "1"
+        self.quantized = bool(quantize)
+        if not self.quantized:
+            folded = from_flax_variables(variables, filter_counts)
+            self.model = UNetXception(folded, self.dtype).to(self.device).eval()
+            return
+        from tmat_torch.models import quant
+
+        scales = quant.load_scales_for(checkpoint_file)
+        calibrated = scales is None
+        # the folded tags follow the model's sorted filter counts
+        self.model, scales = quant.make_quant_pred_fn(
+            variables, tuple(sorted(filter_counts)), scales=scales, patch_size=patch_size,
+            float_dtype=self.dtype, device=self.device)
+        if calibrated:
+            try:  # best-effort cache next to the checkpoint
+                quant.save_scales_for(checkpoint_file, scales)
+            except OSError:
+                pass
 
     def _pred_fn(self, batch: torch.Tensor) -> torch.Tensor:
         return self.model(batch)
@@ -349,4 +376,5 @@ def get_unet_patch_segmentor_from_cfg(
         dtype=dtype_from_name(cfg.get("dtype"), dev),
         tta=int(cfg.get("tta", 8)),
         device=dev,
+        quantize=cfg.get("quantize"),
     )
