@@ -6,9 +6,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device: the card's name, count and power limit (no CUDA device: exit 1);
 2. build: the three CUDA kernels (the down block, focus stacking and the
-   int8 conv) and the three host libraries, from the sources in this
-   checkout, all compilers started together, into an empty build cache
-   (``TMAT_TORCH_BUILD_DIR``, a temporary directory);
+   int8 conv, the latter also as its mma.sync form alone, which phase quant
+   holds and times against the warpgroup form) and the three host
+   libraries, from the sources in this checkout, all compilers started
+   together, into an empty build cache (``TMAT_TORCH_BUILD_DIR``, a
+   temporary directory);
 3. kernel: the fused down block against its plain PyTorch version at the
    three production block shapes (B=8, f32 and bf16) and at an odd-width
    block, so that both forms of the kernel (the warpgroup form of the bf16
@@ -76,13 +78,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
    and f32); one small UNet step on the card against the CPU;
 17. quant: the int8 conv kernel against its plain version, bit-equal, at
    B=8 for the six up convs the mixed segmentor quantises, the entry conv
-   and a 1x1/s2 residual, in every epilogue form; the six timed at B=200
-   (CUDA events) beside their bound, the plain version, ``torch._int_mm``
-   over an unfolded input and the cuDNN bf16 conv they replace; the shipped
+   and a 1x1/s2 residual, in every epilogue form and the two fused forms (a
+   bfloat16 input requantised on load, alone and with the output
+   requantised), the form each shape took (the six up convs the warpgroup
+   form), and the six again in the mma.sync form (a library built with
+   ``TMAT_INT8_MMA_SYNC_ONLY``); the six timed at B=200 as the fused forward
+   launches them (CUDA events) beside their bound, the plain version,
+   ``torch._int_mm`` over an unfolded input, the cuDNN bf16 conv they
+   replace, and the mma.sync form after PyTorch's requantisation (the
+   earlier, unfused path); the shipped
    segmentor with ``"quantize": true`` (scales from the shipped sidecar, no
    calibration) on phase 4's 200 patches: 6 int8 and 3 down-block launches
-   a forward, its mask against the f32 plain forward (IoU >= 0.96), forward
-   ms beside the bf16 path's; a calibration on a copy of the checkpoint
+   a forward, probabilities equal to the unfused path's, its mask against
+   the f32 plain forward (IoU >= 0.96), forward ms beside the unfused and
+   the bf16 path's; a calibration on a copy of the checkpoint
    (scales within 1e-3 of the sidecar's, the sidecar rewritten, none the
    second time); ``run_plate`` of phase 5's wells with the quantized
    segmentor, beside the bf16 plate;
@@ -119,7 +128,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tmat_torch.tools.timing import BLOCK_SHAPES, card_line, cuda_ms, stack_pool
+from tmat_torch.tools.timing import (BLOCK_SHAPES, INT8_UP_SHAPES, card_line, cuda_ms, int8_up_call,
+                                     int8_up_inputs, stack_pool)
 
 # H100 SXM dense peaks and memory rate (NVIDIA data sheet): bf16 products on
 # the tensor cores, f32 on the CUDA cores
@@ -187,8 +197,11 @@ def phase_build():
 
     from tmat_torch.ops import focus_stack, int8_conv
 
+    # the int8 conv also as the mma.sync form alone: phase quant measures the
+    # forms against each other
     jobs = {"down_block": lambda: build.cuda_library("down_block"),
-            "focus_stack": focus_stack.library_path, "int8_conv": int8_conv.library_path}
+            "focus_stack": focus_stack.library_path, "int8_conv": int8_conv.library_path,
+            "int8_conv_mma_sync": lambda: int8_conv.library_path(("TMAT_INT8_MMA_SYNC_ONLY",))}
     for name in ("labeling", "dmtgraph", "morse"):
         jobs[name] = lambda n=name: build.host_library(n)
     t0 = time.perf_counter()
@@ -1451,29 +1464,34 @@ def phase_train(tmp: Path, device) -> int:
 # (tag, H, Cin, Cout, kh, stride) of the int8 conv at the segmentor's widths
 # (patch 320, filters 64-512): the six up convs the mixed forward quantises,
 # then the entry conv and the first down block's 1x1/s2 residual
-INT8_MIXED = [("u0.t1", 20, 512, 512, 3, 1), ("u0.t2", 20, 512, 512, 3, 1), ("u1.t1", 40, 512, 256, 3, 1),
-              ("u1.t2", 40, 256, 256, 3, 1), ("u2.t1", 80, 256, 128, 3, 1), ("u2.t2", 80, 128, 128, 3, 1)]
+INT8_MIXED = [(tag, h, cin, cout, 3, 1) for tag, h, cin, cout in INT8_UP_SHAPES]
 INT8_SHAPES = INT8_MIXED + [("entry", 320, 1, 64, 3, 2), ("d0.res", 160, 64, 128, 1, 2)]
 # (output dtype, relu, sout): the int8 epilogue, the mixed forward's float
 # one, the float tail's (with sout), each with and without relu somewhere
 INT8_FORMS = [(torch.int8, False, False), (torch.int8, True, False), (torch.bfloat16, False, False),
               (torch.float32, True, False), (torch.float32, False, True), (torch.bfloat16, True, True)]
+# the fused forms of the mixed forward, a bfloat16 input requantised on load:
+# (name, relu_in, output requantised through bfloat16, output dtype, relu)
+INT8_FUSED_FORMS = [("t1", True, True, torch.int8, True), ("lone", False, False, torch.bfloat16, False)]
 QUANT_IOU = 0.96  # the quantized mask against the f32 one: tests/test_quant.py's floor
 QUANT_AREA_TOL = 0.5  # area % points between the quantized and the bf16 plate
 QUANT_SCALE_RTOL = 1e-3  # the card's calibration against the shipped sidecar
 
 
-def conv_work(b: int, h: int, cin: int, cout: int, kh: int, stride: int, out_bytes: int) -> dict:
+def conv_work(b: int, h: int, cin: int, cout: int, kh: int, stride: int, in_bytes: int, out_bytes: int) -> dict:
     """What one int8 conv must do and move, and the least time the card
     could take for it: 2 * kh*kh*cin int8 tensor-core operations per output
-    (the padded depth excluded); bytes: the int8 batch read once, the packed
-    weights and two float32 vectors read once, the output written once."""
+    (the padded depth excluded); bytes: the batch (``in_bytes`` an element)
+    read once, the packed weights and the float32 vectors (m, c, and inv_sx
+    or inv_next where the input or output is requantised) read once, the
+    output (``out_bytes`` an element) written once."""
     from tmat_torch.ops.int8_conv import out_size, padded_depth
 
     ho = out_size(h, stride)
     outputs = b * ho * ho * cout
     ops = 2 * outputs * kh * kh * cin
-    nbytes = b * h * h * cin + cout * padded_depth(kh, cin) + 2 * 4 * cout + outputs * out_bytes
+    vectors = 4 * (2 * cout + (cin if in_bytes > 1 else 0) + (cout if out_bytes == 1 and in_bytes > 1 else 0))
+    nbytes = b * h * h * cin * in_bytes + cout * padded_depth(kh, cin) + vectors + outputs * out_bytes
     ops_ms, bytes_ms = ops / PEAK_INT8_TC * 1e3, nbytes / PEAK_BYTES * 1e3
     return {"ops": ops, "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms)}
 
@@ -1490,6 +1508,20 @@ def _int8_inputs(rng, b, h, cin, cout, kh, device):
     return x, packed, m, c, sout
 
 
+def _fused_inputs(rng, x, packed, kh, stride, m, c):
+    """A bfloat16 batch at int8 scale 1 / inv_sx (some of it past +-127), its
+    inv_sx, and an inv_next that puts a tenth of each output channel past
+    +-127."""
+    from tmat_torch.ops import int8_conv as ic
+
+    b, h, _, cin = x.shape
+    xf = torch.from_numpy((rng.randn(b, h, h, cin) * 60).astype(np.float32)).to(x.device).to(torch.bfloat16)
+    inv_sx = torch.tensor((rng.rand(cin) + 0.5).astype(np.float32), device=x.device)
+    v = ic.conv2d_s8_plain(xf, packed, kh, stride, m, c, out_dtype=torch.float32, inv_sx=inv_sx)
+    inv_next = 127 / torch.quantile(v.abs().reshape(-1, packed.shape[0])[:16384].cpu(), 0.9, dim=0).to(x.device)
+    return xf, inv_sx, inv_next
+
+
 def _im2col(x: torch.Tensor, kh: int) -> torch.Tensor:
     """The (B*H*W, kh*kh*C) int8 rows of a stride-1 SAME conv, taps in the
     packed weights' (dy, dx, ci) order."""
@@ -1501,21 +1533,38 @@ def _im2col(x: torch.Tensor, kh: int) -> torch.Tensor:
 
 
 def _int8_kernel_check(rng, device):
+    """Every shape in every form against the plain version, bit-equal, in
+    the form the pick rule takes; the shapes that take the warpgroup form
+    again in the mma.sync form."""
     from tmat_torch.ops import int8_conv as ic
 
     cases = []
     for tag, h, cin, cout, kh, stride in INT8_SHAPES:
         x, packed, m, c, sout = _int8_inputs(rng, 8, h, cin, cout, kh, device)
-        for out_dtype, relu, use_sout in INT8_FORMS:
-            args = (x, packed, kh, stride, m, c, relu, out_dtype, sout if use_sout else None)
-            out = ic.conv2d_s8(*args)
-            ref = ic.conv2d_s8_plain(*args)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            cases.append({"tag": tag, "shape": [8, h, h, cin, cout, kh, stride], "out": str(out_dtype),
-                          "relu": relu, "sout": use_sout, "bit_equal": torch.equal(out, ref), "max_abs_err": err})
-            if not cases[-1]["bit_equal"]:
-                raise AssertionError(f"the int8 conv kernel disagrees with its plain version: {cases[-1]}")
+        xf, inv_sx, inv_next = _fused_inputs(rng, x, packed, kh, stride, m, c)
+        calls = [(f"{str(od).split('.')[-1]}-relu{int(relu)}-sout{int(us)}",
+                  (x, packed, kh, stride, m, c, relu, od, sout if us else None), {})
+                 for od, relu, us in INT8_FORMS]
+        calls += [(name, (xf, packed, kh, stride, m, c, relu, od),
+                   {"inv_sx": inv_sx, "relu_in": relu_in, **({"inv_next": inv_next} if rq else {})})
+                  for name, relu_in, rq, od, relu in INT8_FUSED_FORMS]
+        for name, args, kw in calls:
+            ref = ic.conv2d_s8_plain(*args, **kw)
+            wide = ic.launch_form(cin, cout, kh, stride, h).startswith("wgmma")
+            libraries = [()] + ([("TMAT_INT8_MMA_SYNC_ONLY",)] if wide else [])
+            for defines in libraries:
+                with ic.built_with(*defines):
+                    out = ic.conv2d_s8(*args, **kw)
+                    form = ic.last_launch()
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                cases.append({"tag": tag, "shape": [8, h, h, cin, cout, kh, stride], "form": name, "kernel": form,
+                              "library": list(defines), "bit_equal": torch.equal(out, ref), "max_abs_err": err})
+                if not cases[-1]["bit_equal"]:
+                    raise AssertionError(f"the int8 conv kernel disagrees with its plain version: {cases[-1]}")
+    took = {c["tag"]: c["kernel"] for c in cases if c["form"] == "int8-relu0-sout0" and not c["library"]}
+    if {took[t[0]] for t in INT8_MIXED} != {"wgmma"} or took["entry"] != "mma_sync-gather":
+        raise AssertionError(f"the int8 conv's pick rule took {took}")
     # torch._int_mm on the unfolded input computes the same sums (the yardstick below)
     tag, h, cin, cout, kh, stride = INT8_MIXED[0]
     x, packed, *_ = _int8_inputs(rng, 8, h, cin, cout, kh, device)
@@ -1524,35 +1573,51 @@ def _int8_kernel_check(rng, device):
     mm = torch._int_mm(_im2col(x, kh), packed[:, : kh * kh * cin].contiguous().t())
     if not torch.equal(mm.float(), sums):
         raise AssertionError("torch._int_mm over the unfolded input does not give the kernel's sums")
-    return cases
+    return cases, took
 
 
 def _int8_kernel_time(rng, device):
-    """The six mixed convs at B=200, bf16 out (as the mixed forward runs them)."""
+    """The six mixed convs at B=200 as the fused forward launches them (t1:
+    bfloat16 in, int8 out; t2: int8 in, bfloat16 out), beside their bound,
+    the plain version, the yardsticks and the earlier, unfused path:
+    PyTorch's requantisation, then the mma.sync form."""
     from tmat_torch.models.unet import _conv_nhwc
     from tmat_torch.ops import int8_conv as ic
 
     rows = []
     for tag, h, cin, cout, kh, stride in INT8_MIXED:
-        x, packed, m, c, _ = _int8_inputs(rng, 200, h, cin, cout, kh, device)
-        ms = cuda_ms(lambda: ic.conv2d_s8(x, packed, kh, stride, m, c, out_dtype=torch.bfloat16), 10)
-        plain_ms = cuda_ms(lambda: ic.conv2d_s8_plain(x, packed, kh, stride, m, c, out_dtype=torch.bfloat16), 2)
-        cols, w_kn = _im2col(x, kh), packed[:, : kh * kh * cin].contiguous().t()
-        int_mm_ms = cuda_ms(lambda: torch._int_mm(cols, w_kn), 10)
+        a = int8_up_inputs(ic, rng, 200, h, cin, cout, device)
+        call = int8_up_call(ic, tag, a)
+        ms = cuda_ms(call, 10)
+        form = ic.last_launch()
+        row = {"tag": tag, "shape": [200, h, h, cin, cout, kh, stride], "form": form, "ms": ms}
+        with ic.built_with("TMAT_INT8_MMA_SYNC_ONLY"):
+            row["mma_sync_ms"] = cuda_ms(lambda: ic.conv2d_s8(a["xq"], a["packed"], kh, stride, a["m"], a["c"],
+                                                              out_dtype=torch.bfloat16), 10)
+        # the unfused path's requantisation of the bf16 input (PyTorch passes)
+        row["requant_ms"] = cuda_ms(
+            lambda: torch.clamp(torch.round(a["xf"].float() * a["inv_sx"]), -127, 127).to(torch.int8), 10)
+        row["unfused_path_ms"] = row["mma_sync_ms"] + row["requant_ms"]
+        # the fused call's plain version, on the card (float64 sums)
+        if tag.endswith("t1"):
+            row["plain_ms"] = cuda_ms(lambda: ic.conv2d_s8_plain(
+                a["xf"], a["packed"], kh, stride, a["m"], a["c"], True, inv_sx=a["inv_sx"], relu_in=True,
+                inv_next=a["inv_next"], mid_dtype=torch.bfloat16), 2)
+        else:
+            row["plain_ms"] = cuda_ms(lambda: ic.conv2d_s8_plain(
+                a["xq"], a["packed"], kh, stride, a["m"], a["c"], out_dtype=torch.bfloat16), 2)
+        cols, w_kn = _im2col(a["xq"], kh), a["packed"][:, : kh * kh * cin].contiguous().t()
+        row["int_mm_ms"] = cuda_ms(lambda: torch._int_mm(cols, w_kn), 10)
         del cols
-        xb = x.to(torch.bfloat16)
         kb = torch.randn(cout, cin, kh, kh, device=device, dtype=torch.bfloat16).contiguous(
             memory_format=torch.channels_last)
-        cudnn_ms = cuda_ms(lambda: _conv_nhwc(xb, kb, stride), 10)
-        # the mixed forward's requantisation of the bf16 input (PyTorch passes)
-        inv_sx = torch.rand(cin, device=device) + 0.5
-        requant_ms = cuda_ms(lambda: torch.clamp(torch.round(xb.float() * inv_sx), -127, 127).to(torch.int8), 10)
-        del x, xb
+        row["cudnn_bf16_ms"] = cuda_ms(lambda: _conv_nhwc(a["xf"], kb, stride), 10)
+        del a
         torch.cuda.empty_cache()
-        rows.append({"tag": tag, "shape": [200, h, h, cin, cout, kh, stride], "ms": ms, "plain_ms": plain_ms,
-                     "int_mm_ms": int_mm_ms, "cudnn_bf16_ms": cudnn_ms, "requant_ms": requant_ms,
-                     **conv_work(200, h, cin, cout, kh, stride, 2)})
-        rows[-1]["tops"] = rows[-1]["ops"] / ms / 1e9
+        t1 = tag.endswith("t1")
+        row.update(conv_work(200, h, cin, cout, kh, stride, 2 if t1 else 1, 1 if t1 else 2))
+        row["tops"] = row["ops"] / ms / 1e9
+        rows.append(row)
     return rows
 
 
@@ -1587,14 +1652,21 @@ def phase_quant(rng, unet: dict, plate_run: dict, device, tmp: Path) -> dict:
     from tmat_torch.ops import down_block as db, int8_conv as ic
     from tmat_torch.tools.plate_pipeline import run_plate
 
-    cases = _int8_kernel_check(rng, device)
-    emit("quant_kernel_check", cases=len(cases), all_bit_equal=True,
-         shapes=sorted({c["tag"] for c in cases}), forms=len(INT8_FORMS))
+    cases, took = _int8_kernel_check(rng, device)
+    emit("quant_kernel_check", cases=len(cases), all_bit_equal=True, forms_taken=took,
+         mma_sync_cases=sum(c["kernel"].startswith("mma_sync") for c in cases),
+         wgmma_cases=sum(c["kernel"].startswith("wgmma") for c in cases),
+         forms=len(INT8_FORMS) + len(INT8_FUSED_FORMS))
     timings = _int8_kernel_time(rng, device)
-    emit("quant_kernel_time", convs=timings, ms=sum(t["ms"] for t in timings),
-         bound_ms=sum(t["bound_ms"] for t in timings), int_mm_ms=sum(t["int_mm_ms"] for t in timings),
-         cudnn_bf16_ms=sum(t["cudnn_bf16_ms"] for t in timings), requant_ms=sum(t["requant_ms"] for t in timings),
-         ops=sum(t["ops"] for t in timings))
+
+    def total(key):
+        return sum(t[key] for t in timings)
+
+    emit("quant_kernel_time", convs=timings, ms=total("ms"), bound_ms=total("bound_ms"),
+         ops_ms=total("ops_ms"), bytes_ms=total("bytes_ms"), plain_ms=total("plain_ms"),
+         int_mm_ms=total("int_mm_ms"), cudnn_bf16_ms=total("cudnn_bf16_ms"), mma_sync_ms=total("mma_sync_ms"),
+         requant_ms=total("requant_ms"), unfused_path_ms=total("unfused_path_ms"), ops=total("ops"),
+         bytes=total("bytes"))
 
     # the shipped segmentor, "quantize": true: the shipped sidecar's scales
     root = Path(__file__).resolve().parent
@@ -1617,14 +1689,21 @@ def phase_quant(rng, unet: dict, plate_run: dict, device, tmp: Path) -> dict:
         raise AssertionError(f"the quantized forward launched {forward_launches} int8 / down-block kernels, not (6, 3)")
     if not (torch.isfinite(pred).all() and pred.shape == batch.shape):
         raise AssertionError("quantized forward: non-finite or misshapen output")
+    # the same function with the requantisations as PyTorch passes
+    qseg.model.up_main = qseg.model.up_main_unfused
+    unfused = qseg.model(batch)
+    unfused_ms = cuda_ms(lambda: qseg.model(batch), 3)
+    del qseg.model.up_main
+    if not torch.equal(pred, unfused):
+        raise AssertionError("the fused quantized forward differs from the unfused one")
     mq, m32 = pred > 0.5, unet["mask32"]
     iou = (mq & m32).sum().item() / max((mq | m32).sum().item(), 1)
     if iou < QUANT_IOU:
         raise AssertionError(f"quantized vs f32 mask IoU {iou} < {QUANT_IOU}")
     forward_ms = cuda_ms(lambda: qseg.model(batch), 3)
     emit("quant_unet", batch=list(batch.shape), calibrations=calls[0], launches={"int8_conv": 6, "down_block": 3},
-         mask_iou_vs_f32=iou, forward_ms=forward_ms, bf16_forward_ms=unet["forward_ms"],
-         speed_vs_bf16=unet["forward_ms"] / forward_ms)
+         equal_to_unfused=True, mask_iou_vs_f32=iou, forward_ms=forward_ms, unfused_forward_ms=unfused_ms,
+         bf16_forward_ms=unet["forward_ms"], speed_vs_bf16=unet["forward_ms"] / forward_ms)
 
     # a calibration on the card, on a copy of the checkpoint
     copy = tmp / "calib" / ckpt.name
@@ -1867,7 +1946,8 @@ def run_phases(args, tmp: Path, device, kind: str, smi: str) -> int:
         "launches": quant_run["int8"],
         "launches_by_path": {"quant": quant_run["int8"]},
         "max_abs_err": quant_run["max_abs_err"],
-        # the six int8 up convs of one mixed forward of 200 patches (bf16 out)
+        # the six int8 up convs of one mixed forward of 200 patches, fused as
+        # the forward launches them (t1 bf16 in, int8 out; t2 int8 in, bf16 out)
         "ms": sum(t["ms"] for t in quant_run["timings"]),
         "plain_ms": sum(t["plain_ms"] for t in quant_run["timings"]),
         "bound_ms": sum(t["bound_ms"] for t in quant_run["timings"]),
@@ -1876,8 +1956,11 @@ def run_phases(args, tmp: Path, device, kind: str, smi: str) -> int:
         # torch._int_mm over the unfolded input (its s32 products only)
         "library_ms": sum(t["int_mm_ms"] for t in quant_run["timings"]),
         "cudnn_bf16_ms": sum(t["cudnn_bf16_ms"] for t in quant_run["timings"]),
-        "convs": [{"tag": t["tag"], "ms": t["ms"], "bound_ms": t["bound_ms"], "int_mm_ms": t["int_mm_ms"],
-                   "cudnn_bf16_ms": t["cudnn_bf16_ms"]} for t in quant_run["timings"]],
+        # the unfused path: PyTorch's requantisation, then the mma.sync form
+        "unfused_path_ms": sum(t["unfused_path_ms"] for t in quant_run["timings"]),
+        "convs": [{"tag": t["tag"], "form": t["form"], "ms": t["ms"], "bound_ms": t["bound_ms"],
+                   "int_mm_ms": t["int_mm_ms"], "cudnn_bf16_ms": t["cudnn_bf16_ms"],
+                   "unfused_path_ms": t["unfused_path_ms"]} for t in quant_run["timings"]],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -555,6 +555,15 @@ INT8_SHAPES = [(2, 20, 512, 512, 3, 1), (2, 40, 512, 256, 3, 1), (2, 40, 256, 25
                (2, 160, 64, 128, 1, 2), (3, 9, 5, 70, 3, 2), (2, 13, 48, 24, 1, 1), (1, 7, 16, 8, 3, 1)]
 INT8_FORMS = [(torch.int8, False, False), (torch.int8, True, False), (torch.bfloat16, False, False),
               (torch.float32, False, False), (torch.float32, True, True), (torch.bfloat16, False, True)]
+# (batch dtype, relu_in, requantised output's float rounding or None, output
+# dtype, relu): a float batch requantised on load, alone (a lone int8 conv of
+# the mixed forward) and with its output requantised (t1 of a fused up block)
+INT8_FUSED_FORMS = [(torch.bfloat16, False, None, torch.bfloat16, False),
+                    (torch.bfloat16, True, torch.bfloat16, torch.int8, True),
+                    (torch.float32, True, torch.float32, torch.int8, False)]
+# (Cin, Cout) where the warpgroup form applies (3x3 stride-1 convs of int8 or
+# bfloat16 batches, Cin and Cout multiples of 128); else the mma.sync form
+INT8_WGMMA = {(512, 512), (512, 256), (256, 256), (256, 128), (128, 128)}
 
 
 def int8_case(shape, device, seed=0):
@@ -570,12 +579,36 @@ def int8_case(shape, device, seed=0):
     return x, packed, *vecs
 
 
+def int8_float_batch(shape, dtype, device, seed=1):
+    """A float batch at int8 scale 1 / inv_sx (some of it past +-127), its
+    inv_sx, and an inv_next that puts a tenth of each output channel of
+    ``int8_case``'s weights past +-127."""
+    from tmat_torch.ops import int8_conv as ic
+
+    b, h, cin, cout, kh, stride = shape
+    rng = np.random.RandomState(seed)
+    x = torch.tensor((rng.randn(b, h, h, cin) * 60).astype(np.float32), device=device).to(dtype)
+    inv_sx = torch.tensor((rng.rand(cin) + 0.5).astype(np.float32), device=device)
+    _, packed, m, c, _ = int8_case(shape, device)
+    v = ic.conv2d_s8_plain(x, packed, kh, stride, m, c, out_dtype=torch.float32, inv_sx=inv_sx)
+    inv_next = 127 / torch.quantile(v.abs().reshape(-1, cout)[:16384].cpu(), 0.9, dim=0).to(device)
+    return x, inv_sx, inv_next
+
+
+def expected_int8_form(shape, in_dtype):
+    cin, cout = shape[2], shape[3]
+    if in_dtype != torch.float32 and (cin, cout) in INT8_WGMMA:
+        return "wgmma"
+    return "mma_sync" if in_dtype == torch.int8 and cin % 16 == 0 else "mma_sync-gather"
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("form", INT8_FORMS, ids=lambda f: f"{str(f[0]).split('.')[-1]}-relu{int(f[1])}-sout{int(f[2])}")
 @pytest.mark.parametrize("shape", INT8_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_int8_conv_kernel_matches_plain(cuda, shape, form):
     """Bit-equal: exact int32 sums, the epilogue rounded at the same points
-    (the kernel is built without FMA contraction)."""
+    (the kernel is built without FMA contraction). The six up convs take
+    the warpgroup form, the rest the mma.sync form."""
     from tmat_torch.ops import int8_conv as ic
 
     x, packed, m, c, sout = int8_case(shape, cuda)
@@ -585,9 +618,59 @@ def test_int8_conv_kernel_matches_plain(cuda, shape, form):
     out = ic.conv2d_s8(*args)
     torch.cuda.synchronize()
     assert ic.launches == before + 1
+    assert ic.last_launch() == expected_int8_form(shape, torch.int8) == ic.launch_form(*shape[2:], shape[1])
     ref = ic.conv2d_s8_plain(*args)
     assert out.dtype == out_dtype and out.shape == ref.shape
     assert torch.equal(out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", INT8_FUSED_FORMS,
+                         ids=lambda f: (f"{str(f[0]).split('.')[-1]}in-reluin{int(f[1])}-"
+                                        f"{'rq' + str(f[2]).split('.')[-1] if f[2] else str(f[3]).split('.')[-1]}"))
+@pytest.mark.parametrize("shape", INT8_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_int8_conv_fused_forms_match_plain(cuda, shape, form):
+    """A float batch requantised on load, and an output requantised for the
+    next conv: bit-equal to the plain version, in both kernel forms."""
+    from tmat_torch.ops import int8_conv as ic
+
+    in_dtype, relu_in, mid, out_dtype, relu = form
+    _, packed, m, c, _ = int8_case(shape, cuda)
+    x, inv_sx, inv_next = int8_float_batch(shape, in_dtype, cuda)
+    kw = {"inv_sx": inv_sx, "relu_in": relu_in}
+    if mid is not None:
+        kw.update(inv_next=inv_next, mid_dtype=mid)
+    args = (x, packed, shape[4], shape[5], m, c, relu, out_dtype)
+    out = ic.conv2d_s8(*args, **kw)
+    torch.cuda.synchronize()
+    assert ic.last_launch() == expected_int8_form(shape, in_dtype)
+    ref = ic.conv2d_s8_plain(*args, **kw)
+    assert out.dtype == out_dtype and torch.equal(out, ref)
+    if out_dtype == torch.int8:  # not vacuous: the requantised outputs span the int8 range
+        assert (ref.abs() == 127).any() and (ref != 0).float().mean() > 0.2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [s for s in INT8_SHAPES if (s[2], s[3]) in INT8_WGMMA][::2],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_int8_conv_mma_sync_form_at_the_up_convs(cuda, shape):
+    """The mma.sync form (the library built with TMAT_INT8_MMA_SYNC_ONLY) at
+    the up convs' widths, int8 and bfloat16 batches, against the warpgroup
+    form."""
+    from tmat_torch.ops import int8_conv as ic
+
+    x, packed, m, c, _ = int8_case(shape, cuda)
+    xf, inv_sx, inv_next = int8_float_batch(shape, torch.bfloat16, cuda)
+    calls = [((x, packed, 3, 1, m, c), {"out_dtype": torch.bfloat16}),
+             ((xf, packed, 3, 1, m, c, True), {"inv_sx": inv_sx, "relu_in": True, "inv_next": inv_next})]
+    wide = [ic.conv2d_s8(*a, **k) for a, k in calls]
+    with ic.built_with("TMAT_INT8_MMA_SYNC_ONLY"):
+        legacy = [ic.conv2d_s8(*a, **k) for a, k in calls]
+        assert ic.last_launch() == "mma_sync-gather"
+    torch.cuda.synchronize()
+    for a, k in calls:
+        assert torch.equal(legacy.pop(0), ic.conv2d_s8_plain(*a, **k))
+        assert torch.equal(wide.pop(0), ic.conv2d_s8_plain(*a, **k))
 
 
 @pytest.mark.gpu
@@ -601,6 +684,38 @@ def test_int8_conv_takes_an_unaligned_batch(cuda):
     shifted.copy_(x)
     assert shifted.data_ptr() % 16
     assert torch.equal(ic.conv2d_s8(shifted, packed, 3, 1, m, c), ic.conv2d_s8_plain(x, packed, 3, 1, m, c))
+    assert ic.last_launch() == "mma_sync-gather"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 3, 5])
+def test_int8_conv_warpgroup_form_takes_a_ragged_batch(cuda, b):
+    """Batches whose pixels leave the last 128-row tile part empty, with
+    tiles spanning two images, an unaligned batch (which goes to the
+    mma.sync form) and an unaligned inv_sx (which the warpgroup form copies
+    to shared memory by the float)."""
+    from tmat_torch.ops import int8_conv as ic
+
+    shape = (b, 20, 128, 256, 3, 1)
+    x, packed, m, c, _ = int8_case(shape, cuda)
+    xf, inv_sx, inv_next = int8_float_batch(shape, torch.bfloat16, cuda)
+    kw = {"inv_sx": inv_sx, "relu_in": True, "inv_next": inv_next}
+    for args, k, form in (((x, packed, 3, 1, m, c), {}, "wgmma"),
+                          ((xf, packed, 3, 1, m, c, True), kw, "wgmma")):
+        out = ic.conv2d_s8(*args, **k)
+        assert ic.last_launch() == form
+        assert torch.equal(out, ic.conv2d_s8_plain(*args, **k))
+    flat = torch.empty(x.numel() + 16, dtype=torch.int8, device=cuda)
+    shifted = flat[8:8 + x.numel()].view(x.shape)
+    shifted.copy_(x)
+    assert torch.equal(ic.conv2d_s8(shifted, packed, 3, 1, m, c), ic.conv2d_s8_plain(x, packed, 3, 1, m, c))
+    assert ic.last_launch() == "mma_sync-gather"
+    scales = torch.empty(inv_sx.numel() + 1, device=cuda)
+    odd = scales[1:]
+    odd.copy_(inv_sx)
+    out = ic.conv2d_s8(xf, packed, 3, 1, m, c, True, inv_sx=odd, relu_in=True, inv_next=inv_next)
+    assert ic.last_launch() == "wgmma"
+    assert torch.equal(out, ic.conv2d_s8_plain(xf, packed, 3, 1, m, c, True, **kw))
 
 
 @pytest.mark.gpu
@@ -617,27 +732,22 @@ def test_int8_conv_wrapper_refuses(cuda):
         ic.conv2d_s8(x, wide[1:].view(packed.shape), 3, 1, m, c)
     with pytest.raises(ValueError, match="kernel sizes"):
         ic.conv2d_s8(x, packed, 5, 1, m, c)
+    with pytest.raises(ValueError, match="inv_sx"):
+        ic.conv2d_s8(x.to(torch.bfloat16), packed, 3, 1, m, c)
+    with pytest.raises(ValueError, match="inv_next"):
+        ic.conv2d_s8(x, packed, 3, 1, m, c, out_dtype=torch.bfloat16, inv_next=m)
+    with pytest.raises(ValueError, match="inv_sx on cpu"):
+        ic.conv2d_s8(x.float(), packed, 3, 1, m, c, inv_sx=torch.ones(16))
 
 
-@pytest.mark.gpu
-def test_quantized_segmentor_launches_the_int8_kernel(cuda, tmp_path):
-    """A small quantized segmentor on the card: 6 int8 and (here) 2 down-block
-    launches per forward. In float32 (TF32 off) its probabilities are within
-    0.02 of the CPU's mixed forward (a requantised input may round the other
-    way where the card's convs sum in another order); in bfloat16 they are
-    finite and within 0.05 of float32 on average."""
-    from tmat_torch.models import quant as Q
-    from tmat_torch.ops import int8_conv as ic
-
-    rng = np.random.RandomState(2)
-    fc = (16, 32, 64)
-    x = torch.tensor(rng.rand(3, 64, 64, 1).astype(np.float32))
-
+def random_folded(rng, fc):
+    """``extract_folded``'s layout for a UNet of filters ``fc`` with random
+    weights, the up convs scaled to keep activations near 1."""
     def arr(*shape, scale):
         return (rng.randn(*shape) * scale).astype(np.float32)
 
-    folded = {"_n": {"down": 2, "up": 3}, "entry": {"w": arr(3, 3, 1, 16, scale=0.3), "b": arr(16, scale=0.1),
-                                                    "kind": "conv", "stride": 2}}
+    folded = {"_n": {"down": len(fc) - 1, "up": len(fc)},
+              "entry": {"w": arr(3, 3, 1, fc[0], scale=0.3), "b": arr(fc[0], scale=0.1), "kind": "conv", "stride": 2}}
     for i, (ci, co) in enumerate(zip(fc[:-1], fc[1:])):
         folded.update({f"d{i}.dw1": {"w": arr(3, 3, 1, ci, scale=0.3), "b": None, "kind": "dw", "stride": 1},
                        f"d{i}.pw1": {"w": arr(1, 1, ci, co, scale=ci ** -0.5), "b": arr(co, scale=0.1),
@@ -655,7 +765,24 @@ def test_quantized_segmentor_launches_the_int8_kernel(cuda, tmp_path):
         folded[f"u{j}.res"] = {"w": arr(1, 1, prev, f, scale=prev ** -0.5), "b": arr(f, scale=0.1),
                                "kind": "conv", "stride": 1}
         prev = f
-    folded["head"] = {"w": arr(3, 3, 16, 1, scale=0.1), "b": arr(1, scale=0.1), "kind": "conv", "stride": 1}
+    folded["head"] = {"w": arr(3, 3, fc[0], 1, scale=0.1), "b": arr(1, scale=0.1), "kind": "conv", "stride": 1}
+    return folded
+
+
+@pytest.mark.gpu
+def test_quantized_segmentor_launches_the_int8_kernel(cuda, tmp_path):
+    """A small quantized segmentor on the card: 6 int8 and (here) 2 down-block
+    launches per forward. In float32 (TF32 off) its probabilities are within
+    0.02 of the CPU's mixed forward (a requantised input may round the other
+    way where the card's convs sum in another order); in bfloat16 they are
+    finite and within 0.05 of float32 on average."""
+    from tmat_torch.models import quant as Q
+    from tmat_torch.ops import int8_conv as ic
+
+    rng = np.random.RandomState(2)
+    fc = (16, 32, 64)
+    x = torch.tensor(rng.rand(3, 64, 64, 1).astype(np.float32))
+    folded = random_folded(rng, fc)
     scales = Q.calibrate(folded, x.numpy(), "cpu")
     qp = Q.quantize_mixed(folded, scales)
     ref = Q.forward_mixed(qp, x, torch.float32)
@@ -669,3 +796,26 @@ def test_quantized_segmentor_launches_the_int8_kernel(cuda, tmp_path):
         assert torch.isfinite(outs[dtype]).all() and outs[dtype].shape == x.shape
     assert (outs[torch.float32] - ref).abs().max().item() <= 0.02
     assert (outs[torch.bfloat16] - ref).abs().mean().item() <= 0.05
+
+
+@pytest.mark.gpu
+def test_quantized_forward_fused_equals_unfused(cuda):
+    """At widths of 128 and 256 the up convs take the warpgroup form: the
+    fused up blocks (t1 requantises its bfloat16 input and writes t2's int8
+    input) give probabilities equal to the requantisations as PyTorch
+    passes (``up_main_unfused``)."""
+    from tmat_torch.models import quant as Q
+    from tmat_torch.ops import int8_conv as ic
+
+    rng = np.random.RandomState(3)
+    x = torch.tensor(rng.rand(4, 48, 48, 1).astype(np.float32))
+    folded = random_folded(rng, (128, 256))
+    model = Q.MixedUNetXception(Q.quantize_mixed(folded, Q.calibrate(folded, x.numpy(), "cpu")),
+                                torch.bfloat16).to(cuda).eval()
+    before = ic.launches
+    fused = model(x.to(cuda))
+    torch.cuda.synchronize()
+    assert ic.launches - before == 4 and ic.last_launch() == "wgmma"
+    model.up_main = model.up_main_unfused
+    unfused = model(x.to(cuda))
+    assert torch.isfinite(fused).all() and torch.equal(fused, unfused)

@@ -10,7 +10,13 @@ ops (``tmat_tpu/models/quant.py``). Tolerances:
   numpy, and to the JAX epilogue except at an int8 rounding tie, where an
   output may differ by one step (XLA may contract the multiply-add);
 - float outputs: bit-equal to numpy's float32 (bfloat16: round to nearest
-  even of numpy's float32).
+  even of numpy's float32);
+- a float batch requantised on load (``inv_sx``, ``relu_in``): its int8
+  input equal to JAX's ``clip(round(h.astype(f32) * inv_sx))``, the output
+  bit-equal to ``requantize`` followed by the int8 plain conv;
+- a requantised output (``inv_next``): bit-equal to ``epilogue_plain``'s
+  float output rounded to ``mid_dtype``, relu, ``requantize``; against the
+  same steps in JAX an output may differ by one step at a tie.
 
 The CUDA kernel is held against this plain version on the card
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
@@ -29,7 +35,14 @@ DN = ("NHWC", "HWIO", "NHWC")
 # (B, H, W, Cin, Cout): odd sizes, the entry conv's single channel, widths
 # that are and are not multiples of 16 and of the 64-wide output tile
 SHAPES = [(2, 9, 13, 1, 24), (1, 7, 7, 5, 8), (2, 10, 6, 16, 70), (1, 5, 11, 48, 16)]
-FORMS = ["int8", "int8_relu", "float32", "bfloat16", "float32_sout", "bfloat16_sout_relu"]
+# tokens: the output type, "relu", "sout"; a float batch ("f32in", "bf16in")
+# requantised on load, after a relu with "reluin"; an int8 output requantised
+# through a float32 / bfloat16 rounding ("rqf32", "rqbf16")
+FORMS = ["int8", "int8_relu", "float32", "bfloat16", "float32_sout", "bfloat16_sout_relu",
+         "bf16in_reluin_bfloat16", "f32in_int8_relu", "int8_relu_rqbf16", "bf16in_reluin_int8_relu_rqbf16",
+         "f32in_reluin_int8_rqf32"]
+IN_TOKENS = {"f32in": torch.float32, "bf16in": torch.bfloat16}
+MID_TOKENS = {"rqf32": torch.float32, "rqbf16": torch.bfloat16}
 
 
 def _case(shape, kh, seed=0):
@@ -49,8 +62,17 @@ def _jax_acc(x, wq, stride):
 
 
 def _form(form):
-    out = {"int8": torch.int8, "float32": torch.float32, "bfloat16": torch.bfloat16}[form.split("_")[0]]
-    return out, "relu" in form, "sout" in form
+    outs = {"int8": torch.int8, "float32": torch.float32, "bfloat16": torch.bfloat16}
+    tokens = form.split("_")
+    out = next(outs[t] for t in tokens if t in outs)
+    return out, "relu" in tokens, "sout" in tokens
+
+
+def _fused(form):
+    """(float batch dtype or None, relu_in, mid dtype of a requantised output or None)"""
+    tokens = form.split("_")
+    return (next((IN_TOKENS[t] for t in tokens if t in IN_TOKENS), None), "reluin" in tokens,
+            next((MID_TOKENS[t] for t in tokens if t in MID_TOKENS), None))
 
 
 def _numpy_epilogue(acc, m, c, relu, out, sout):
@@ -93,11 +115,47 @@ def test_epilogue_forms(kh, stride, form):
     shape = (2, 9, 13, 16, 24)
     x, wq, m, c, sout = _case(shape, kh, seed=3)
     out_dtype, relu, use_sout = _form(form)
+    in_dtype, relu_in, mid = _fused(form)
     t = torch.tensor
-    got = ic.conv2d_s8(t(x), ic.pack_weights(wq), kh, stride, t(m), t(c), relu, out_dtype,
-                       t(sout) if use_sout else None)
-    assert got.dtype == out_dtype and got.is_contiguous()
+    kw = {}
+    if in_dtype is not None:  # a float batch at int8 scale 1 / inv_sx, some of it beyond +-127
+        rng = np.random.RandomState(5)
+        h = t((rng.randn(*x.shape) * 60).astype(np.float32)).to(in_dtype)
+        inv_sx = (rng.rand(shape[3]) + 0.5).astype(np.float32)
+        kw.update(inv_sx=t(inv_sx), relu_in=relu_in)
+        hf = np.maximum(h.float().numpy(), 0) if relu_in else h.float().numpy()
+        x = np.asarray(jnp.clip(jnp.round(jnp.asarray(hf) * jnp.asarray(inv_sx)), -127, 127).astype(jnp.int8))
+        xq = ic.requantize(h, t(inv_sx), relu_in)
+        np.testing.assert_array_equal(xq.numpy(), x)  # the JAX package's requantisation
+        assert (np.abs(x) == 127).any() and (x == 0).any()
     acc = _jax_acc(x, wq, stride)
+    if mid is not None:  # scales that put a tenth of each channel's outputs past +-127
+        v = np.abs(acc.astype(np.float32) * m + c).reshape(-1, shape[4])
+        inv_next = (127 / np.percentile(v, 90, axis=0)).astype(np.float32)
+        kw.update(inv_next=t(inv_next), mid_dtype=mid)
+    packed = ic.pack_weights(wq)
+    batch = h if in_dtype is not None else t(x)
+    got = ic.conv2d_s8(batch, packed, kh, stride, t(m), t(c), relu, out_dtype, t(sout) if use_sout else None,
+                       **kw)
+    assert got.dtype == out_dtype and got.is_contiguous()
+    if in_dtype is not None:  # PyTorch requantisation, then the int8 plain conv
+        unfused = {k: v for k, v in kw.items() if k not in ("inv_sx", "relu_in")}
+        assert torch.equal(got, ic.conv2d_s8_plain(xq, packed, kh, stride, t(m), t(c), relu, out_dtype,
+                                                   t(sout) if use_sout else None, **unfused))
+    if mid is not None:
+        # the composition: the float epilogue, rounded to mid, relu, requantised
+        v = ic.epilogue_plain(t(acc), t(m), t(c), relu, mid, None)
+        want = ic.requantize(torch.relu(v) if relu else v, t(inv_next))
+        assert torch.equal(got, want)
+        # the same steps in JAX: an output at a tie may round apart
+        y = acc.astype(jnp.float32) * jnp.asarray(m) + jnp.asarray(c)
+        y = jnp.maximum(y, 0.0) if relu else y
+        y = y.astype(jnp.bfloat16 if mid == torch.bfloat16 else jnp.float32).astype(jnp.float32)
+        jax_q = np.asarray(jnp.clip(jnp.round(y * jnp.asarray(inv_next)), -127, 127).astype(jnp.int8))
+        diff = np.abs(got.numpy().astype(int) - jax_q.astype(int))
+        assert diff.max() <= 1 and (diff > 0).mean() < 1e-3
+        assert (np.abs(got.numpy()) == 127).any() and (got.numpy() != 0).mean() > 0.2
+        return
     want = _numpy_epilogue(acc, m, c, relu, out_dtype, sout if use_sout else None)
     if out_dtype == torch.int8:
         np.testing.assert_array_equal(got.numpy(), want)
@@ -142,6 +200,18 @@ def test_wrapper_refuses():
         ic.conv2d_s8(x, p3, 3, 1, one, one, out_dtype=torch.float16)
     with pytest.raises(ValueError, match="square"):
         ic.pack_weights(np.zeros((3, 1, 3, 8), np.int8))
+    with pytest.raises(ValueError, match="inv_sx"):  # a float batch without its scale
+        ic.conv2d_s8(x.to(torch.bfloat16), p3, 3, 1, one, one)
+    with pytest.raises(ValueError, match="int8 batch has neither"):
+        ic.conv2d_s8(x, p3, 3, 1, one, one, inv_sx=torch.ones(16))
+    with pytest.raises(ValueError, match="float32 of shape \\(16,\\)"):
+        ic.conv2d_s8(x.float(), p3, 3, 1, one, one, inv_sx=one)
+    with pytest.raises(ValueError, match="inv_next"):  # a float output has no requantisation
+        ic.conv2d_s8(x, p3, 3, 1, one, one, out_dtype=torch.bfloat16, inv_next=one)
+    with pytest.raises(ValueError, match="mid_dtype"):
+        ic.conv2d_s8(x, p3, 3, 1, one, one, mid_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="mid_dtype"):
+        ic.conv2d_s8(x, p3, 3, 1, one, one, inv_next=one, mid_dtype=torch.float16)
     before = ic.launches
     ic.conv2d_s8(x, p3, 3, 1, one, one)
     assert ic.launches == before  # the plain version is no launch

@@ -217,6 +217,37 @@ def test_forward_mixed_matches_jax(small):
         Q.MixedUNetXception(Q.quantize_mixed(small["fp"], small["scales_j"], tags=("d0.pw1",)))
 
 
+@pytest.mark.parametrize("tags", [Q.DEFAULT_MIXED_TAGS, ("u0.t1", "u1.t2", "u3.t1", "u3.t2")],
+                         ids=["pairs", "lone"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_mixed_fused_equals_unfused(small, monkeypatch, dtype, tags):
+    """An up block whose convs are both int8 is two int8 launches: t1 takes
+    the float input (requantised on load) and writes t2's int8 input, t2
+    writes the float output; a lone int8 conv takes its float input. The
+    forward is torch.equal to the requantisations as PyTorch passes around
+    int8-in convs (``up_main_unfused``), and quant.py runs no requantisation
+    of its own."""
+    model = Q.MixedUNetXception(Q.quantize_mixed(small["fp"], small["scales_j"], tags=tags), dtype).eval()
+    x = torch.tensor(small["x"])
+    calls, requants = [], []
+    real_conv, real_requant = Q.conv2d_s8, Q.requantize
+    monkeypatch.setattr(Q, "conv2d_s8", lambda h, *a, **k: calls.append((h.dtype, "inv_next" in k))
+                        or real_conv(h, *a, **k))
+    monkeypatch.setattr(Q, "requantize", lambda *a, **k: requants.append(1) or real_requant(*a, **k))
+    fused = model(x)
+    if tags == Q.DEFAULT_MIXED_TAGS:  # t1: float in, int8 out; t2: int8 in
+        assert calls == [(dtype, True), (torch.int8, False)] * 3
+    else:  # u0.t1 and u1.t2 alone: float in; the u3 pair fused
+        assert calls == [(dtype, False), (dtype, False), (dtype, True), (torch.int8, False)]
+    assert requants == [] and fused.dtype == torch.float32
+    calls.clear()
+    model.up_main = model.up_main_unfused
+    unfused = model(x)
+    assert all(c == (torch.int8, False) for c in calls) and len(requants) == len(calls) == len(tags)
+    assert torch.equal(fused, unfused)
+    assert 0.05 < (fused > 0.5).float().mean() < 0.95, "vacuous: a constant mask"
+
+
 def test_make_quant_pred_fn_modes(small):
     """Both modes from explicit scales: the same forwards as above."""
     x = torch.tensor(small["x"])

@@ -51,7 +51,7 @@ import torch.nn.functional as F
 from tmat_torch.device import DeviceLike, resolve_device
 from tmat_torch.models.unet import UNetXception, _conv_nhwc, _upsample2
 from tmat_torch.ops.down_block import _maxpool3x3s2
-from tmat_torch.ops.int8_conv import conv2d_s8, epilogue_plain, pack_weights, same_pads
+from tmat_torch.ops.int8_conv import conv2d_s8, epilogue_plain, pack_weights, requantize, same_pads
 
 BN_EPS = 1e-3  # reference models.py BatchNormalization(epsilon=1e-3)
 
@@ -586,9 +586,15 @@ def _unet_folded(qparams) -> dict:
 class MixedUNetXception(UNetXception):
     """The port's ``UNetXception`` forward (its down blocks on the
     down-block kernel) with the int8 up convs of ``quantize_mixed``'s
-    parameters: each requantises its input (``clip(round(h * inv_sx))``),
-    then ``ops/int8_conv.py`` computes ``acc * eff + b`` in ``dtype``. Only
-    up convs may be int8 here."""
+    parameters. Each computes ``acc * eff + b`` in ``dtype`` on its input
+    requantised at ``1 / inv_sx`` (``ops/int8_conv.py``). An up block whose
+    two convs are both int8 is two launches (``up_main``): conv 1 requantises
+    its float input while loading it and writes conv 2's int8 input
+    (``bf(acc * eff + b)``, relu, requantised), conv 2 writes the float
+    output; a lone int8 conv takes its float input the same way
+    (``up_conv``). ``up_main_unfused`` is the same function with the
+    requantisations as separate PyTorch passes. Only up convs may be int8
+    here."""
 
     def __init__(self, qparams, dtype: torch.dtype = torch.float32):
         tags = {tag for tag, sp in qparams.items() if not tag.startswith("_") and sp["quant"]}
@@ -603,14 +609,37 @@ class MixedUNetXception(UNetXception):
             for key in ("inv_sx", "eff", "b"):
                 self.register_buffer(f"{name}_{key}", torch.tensor(sp[key], dtype=torch.float32))
 
+    def _int8(self, j: int, i: int):
+        """(packed weights, inv_sx, eff, b) of int8 conv ``u{j}.t{i}``."""
+        name = f"u{j}_t{i}"
+        return tuple(getattr(self, f"{name}_{key}") for key in ("packed", "inv_sx", "eff", "b"))
+
     def up_conv(self, j: int, i: int, h: torch.Tensor) -> torch.Tensor:
-        tag = f"u{j}.t{i}"
-        if tag not in self.int8_tags:
+        if f"u{j}.t{i}" not in self.int8_tags:
             return super().up_conv(j, i, h)
-        name = tag.replace(".", "_")
-        hq = torch.clamp(torch.round(h.float() * getattr(self, f"{name}_inv_sx")), -127, 127).to(torch.int8)
-        return conv2d_s8(hq, getattr(self, f"{name}_packed"), 3, 1, getattr(self, f"{name}_eff"),
-                         getattr(self, f"{name}_b"), out_dtype=self.dtype)
+        packed, inv_sx, eff, b = self._int8(j, i)
+        return conv2d_s8(h.contiguous(), packed, 3, 1, eff, b, out_dtype=self.dtype, inv_sx=inv_sx)
+
+    def up_main(self, j: int, x: torch.Tensor) -> torch.Tensor:
+        if not {f"u{j}.t1", f"u{j}.t2"} <= self.int8_tags:
+            return super().up_main(j, x)
+        packed1, inv_sx1, eff1, b1 = self._int8(j, 1)
+        packed2, inv_sx2, eff2, b2 = self._int8(j, 2)
+        q = conv2d_s8(x.contiguous(), packed1, 3, 1, eff1, b1, relu=True, inv_sx=inv_sx1, relu_in=True,
+                      inv_next=inv_sx2, mid_dtype=self.dtype)
+        return conv2d_s8(q, packed2, 3, 1, eff2, b2, out_dtype=self.dtype)
+
+    def up_main_unfused(self, j: int, x: torch.Tensor) -> torch.Tensor:
+        """``up_main`` with each int8 conv's requantisation and its relus as
+        PyTorch passes around int8-in, float-out convs."""
+
+        def conv(i, h):
+            if f"u{j}.t{i}" not in self.int8_tags:
+                return UNetXception.up_conv(self, j, i, h)
+            packed, inv_sx, eff, b = self._int8(j, i)
+            return conv2d_s8(requantize(h, inv_sx), packed, 3, 1, eff, b, out_dtype=self.dtype)
+
+        return conv(2, torch.relu(conv(1, torch.relu(x))))
 
 
 def forward_mixed(qparams, x, float_dtype=torch.bfloat16):

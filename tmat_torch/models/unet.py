@@ -123,6 +123,10 @@ class UNetXception(nn.Module):
         """Up block ``j``'s ``i``-th 3x3 conv (1 or 2) with its bias."""
         return _conv_nhwc(h, getattr(self, f"up{j}_k{i}"), 1) + getattr(self, f"up{j}_b{i}")
 
+    def up_main(self, j: int, x: torch.Tensor) -> torch.Tensor:
+        """Up block ``j``'s main branch: conv 2 of relu(conv 1 of relu(x))."""
+        return self.up_conv(j, 2, torch.relu(self.up_conv(j, 1, torch.relu(x))))
+
     @torch.no_grad()
     def forward(self, batch: torch.Tensor, plain_down: bool = False) -> torch.Tensor:
         """(B, H, W, 1) -> (B, H, W, 1) float32 probabilities.
@@ -135,8 +139,7 @@ class UNetXception(nn.Module):
             x = block(x, self.down_weights(i), first=(i == 0))
         for j in range(self.n_up):
             prev = x
-            h = torch.relu(self.up_conv(j, 1, torch.relu(x)))
-            h = self.up_conv(j, 2, h)
+            h = self.up_main(j, x)
             r = _pointwise(prev, getattr(self, f"up{j}_wr"), getattr(self, f"up{j}_br"))
             x = _upsample2(h + r)  # = up(h) + up(r): the upsample only copies
         y = (_conv_nhwc(x, self.head_k, 1) + self.head_b).float()

@@ -1,12 +1,16 @@
-"""CUDA-event times of the port's two kernels at the shapes the plate gives them.
+"""CUDA-event times of the port's three kernels at the shapes its main paths give them.
 
     python tmat_torch/tools/kernel_times.py [--tree DIR] [--seed 0]
 
 Prints one JSON line: the three production down blocks (200 patches, bf16)
 and their sum, the focus kernel on uint8 (1, 8, 1024, 1024) and (8, 8, 1024,
 1024) stacks (each call on another 64 MB of stacks, so that L2 is cold) with
-host ``z_counts`` and at full depth, an empty-sized focus launch, and the
-card's name and power limit.
+host ``z_counts`` and at full depth, an empty-sized focus launch, the six
+int8 up convs of the mixed segmentor at B=200 as its forward launches them
+(a tree whose kernel requantises its input: t1 bfloat16 in, int8 out, t2
+int8 in; an older tree: each input requantised by PyTorch, then int8 in,
+bfloat16 out; ``int8_up_fused`` says which) and their sum, and the card's
+name and power limit.
 
 ``--tree DIR`` imports ``tmat_torch`` from another checkout (say the parent
 commit, unpacked with ``git archive`` into a git-ignored directory) instead
@@ -48,7 +52,7 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA device")
-    from tmat_torch.ops import down_block as db, focus_stack as fs
+    from tmat_torch.ops import down_block as db, focus_stack as fs, int8_conv as ic
 
     device = torch.device("cuda")
     rng = np.random.RandomState(args.seed)
@@ -67,6 +71,12 @@ def main(argv=None) -> int:
         res[f"focus_b{b}_full_depth_ms"] = ms(lambda: fs.focus_stack(nxt()), 20)
     tiny = torch.zeros((1, 1, 1, 1), dtype=torch.uint8, device=device)
     res["focus_empty_launch_ms"] = ms(lambda: fs.focus_stack(tiny), 200)
+    res["int8_up_fused"] = timing.fuses_requant(ic)
+    for tag, h, cin, cout in timing.INT8_UP_SHAPES:
+        a = timing.int8_up_inputs(ic, rng, 200, h, cin, cout, device)
+        res[f"int8_{tag}_ms"] = ms(timing.int8_up_call(ic, tag, a, res["int8_up_fused"]), 10)
+        del a
+    res["int8_up_ms"] = sum(res[f"int8_{t[0]}_ms"] for t in timing.INT8_UP_SHAPES)
     print(json.dumps(res), flush=True)
     return 0
 
