@@ -650,27 +650,41 @@ def test_int8_conv_fused_forms_match_plain(cuda, shape, form):
         assert (ref.abs() == 127).any() and (ref != 0).float().mean() > 0.2
 
 
+def int8_form_id(form):
+    if len(form) == 3:
+        return f"{str(form[0]).split('.')[-1]}-relu{int(form[1])}-sout{int(form[2])}"
+    return (f"{str(form[0]).split('.')[-1]}in-reluin{int(form[1])}-"
+            f"{'rq' + str(form[2]).split('.')[-1] if form[2] else str(form[3]).split('.')[-1]}")
+
+
+# every epilogue form and fused form at the shapes the warpgroup form takes
+INT8_MMA_SYNC_CASES = [(s, f) for s in INT8_SHAPES if (s[2], s[3]) in INT8_WGMMA
+                       for f in INT8_FORMS + INT8_FUSED_FORMS]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [s for s in INT8_SHAPES if (s[2], s[3]) in INT8_WGMMA][::2],
-                         ids=lambda s: "x".join(map(str, s)))
-def test_int8_conv_mma_sync_form_at_the_up_convs(cuda, shape):
-    """The mma.sync form (the library built with TMAT_INT8_MMA_SYNC_ONLY) at
-    the up convs' widths, int8 and bfloat16 batches, against the warpgroup
-    form."""
+@pytest.mark.parametrize("shape,form", INT8_MMA_SYNC_CASES,
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v[0], int) else int8_form_id(v))
+def test_int8_conv_mma_sync_form_at_the_up_convs(cuda, shape, form):
+    """The mma.sync form (the library built with TMAT_INT8_MMA_SYNC_ONLY)
+    where the pick rule takes the warpgroup form, in every form: bit-equal
+    to the plain version too."""
     from tmat_torch.ops import int8_conv as ic
 
-    x, packed, m, c, _ = int8_case(shape, cuda)
-    xf, inv_sx, inv_next = int8_float_batch(shape, torch.bfloat16, cuda)
-    calls = [((x, packed, 3, 1, m, c), {"out_dtype": torch.bfloat16}),
-             ((xf, packed, 3, 1, m, c, True), {"inv_sx": inv_sx, "relu_in": True, "inv_next": inv_next})]
-    wide = [ic.conv2d_s8(*a, **k) for a, k in calls]
+    x, packed, m, c, sout = int8_case(shape, cuda)
+    if len(form) == 3:
+        out_dtype, relu, use_sout = form
+        args, kw = (x, packed, shape[4], shape[5], m, c, relu, out_dtype, sout if use_sout else None), {}
+    else:
+        in_dtype, relu_in, mid, out_dtype, relu = form
+        x, inv_sx, inv_next = int8_float_batch(shape, in_dtype, cuda)
+        args = (x, packed, shape[4], shape[5], m, c, relu, out_dtype)
+        kw = {"inv_sx": inv_sx, "relu_in": relu_in, **({"inv_next": inv_next, "mid_dtype": mid} if mid else {})}
     with ic.built_with("TMAT_INT8_MMA_SYNC_ONLY"):
-        legacy = [ic.conv2d_s8(*a, **k) for a, k in calls]
-        assert ic.last_launch() == "mma_sync-gather"
+        out = ic.conv2d_s8(*args, **kw)
+        assert ic.last_launch() == ("mma_sync" if x.dtype == torch.int8 else "mma_sync-gather")
     torch.cuda.synchronize()
-    for a, k in calls:
-        assert torch.equal(legacy.pop(0), ic.conv2d_s8_plain(*a, **k))
-        assert torch.equal(wide.pop(0), ic.conv2d_s8_plain(*a, **k))
+    assert out.dtype == out_dtype and torch.equal(out, ic.conv2d_s8_plain(*args, **kw))
 
 
 @pytest.mark.gpu
