@@ -99,7 +99,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``./tmat-torch compute_zproj IN OUT -m fs`` on a fresh build cache, its
    TIFFs byte-equal to the in-process tool's; a ``--standalone`` bundle
    running ``-m max`` with no python on ``PATH``; both bundles' bytes and
-   seconds.
+   seconds;
+19. rng: JAX's threefry streams in the port (``core/prng.py``): SHA-256 of
+   the well search's default draws for seed 0 and of the shipped
+   segmentor's UNet kernels from seed 0 (drawn on the card) against
+   digests that the CPU tests pin to the JAX package, the card's bits
+   against the CPU's (draws, UNet and ResNet50 inits), and the ResNet50
+   init on the card timed three times.
 
 Phase 4 also holds the bf16 kernel path's mask against an f32 forward of
 the plain path. The launch counts of phases 5, 8, 9, 10, 13 and 15 go into
@@ -114,6 +120,7 @@ from __future__ import annotations
 
 import argparse
 import csv
+import hashlib
 import json
 import os
 import struct
@@ -161,6 +168,19 @@ TRAIN_EVAL_SIZE = 1024  # the trained segmentor's two synthetic images
 # the trained segmentor's probability maps: the bf16 kernel path against the
 # bf16 plain path, and against the float32 plain path
 TRAIN_PROB_TOL = {"kernel_vs_plain": 0.02, "bf16_vs_f32": 0.05}
+
+
+# SHA-256 of JAX's draws for seed 0, held to the JAX package by
+# tests/test_torch_prng.py::test_chip_smoke_digests_are_jax_s (the card has
+# no JAX): jax.random.uniform(PRNGKey(0), (25000, 6)) (the well search's
+# candidates), and the kernels of the shipped segmentor's UNet (patch 320,
+# filters 64-512) from model.init(PRNGKey(0)), float32 in Flax tree order
+RNG_DIGESTS = {
+    "unit_draws_0": "8f6d985678d4bfe5e4db839112e2ed6347ed7e2d32237a1f56db7d17508f1bd9",
+    "unet_kernels_0": "12ee9f588553ee61ed870fd3aa0e208c67de7d5b6f5b7ed88df1f52b323c098b",
+}
+RNG_UNET = dict(n_outputs=1, img_shape=(320, 320), channels=1, filter_counts=(64, 128, 256, 512))
+RNG_RESNET = dict(n_outputs=1, img_shape=(256, 256, 3))  # the invasion trainer's ResNet50
 
 
 _START = time.perf_counter()
@@ -1833,6 +1853,60 @@ def phase_package(stacks: np.ndarray, device, tmp: Path) -> None:
     emit("package", stacks=len(stacks), outputs_byte_equal=True, **runs)
 
 
+def kernels_digest(state: dict) -> str:
+    """SHA-256 of a trainable model's kernels: float32 bytes in state-dict
+    (Flax tree) order."""
+    h = hashlib.sha256()
+    for key, t in state.items():
+        if key.endswith(".kernel"):
+            h.update(np.ascontiguousarray(np.asarray(t, np.float32)).tobytes())
+    return h.hexdigest()
+
+
+def phase_rng(device, smi: str) -> None:
+    """JAX's threefry streams (``core/prng.py``): the well search's default
+    draws and the UNet's from-scratch kernels against digests pinned to the
+    JAX package, the card's bits against the CPU's, and the ResNet50 init
+    timed on the card."""
+    from tmat_torch.core import prng
+    from tmat_torch.models import resnet, unet
+    from tmat_torch.ops.wellmask import unit_draws
+
+    draws = unit_draws(0)
+    digests = {"unit_draws_0": hashlib.sha256(draws.tobytes()).hexdigest()}
+    on_card = prng.uniform(prng.prng_key(0), draws.shape, device=device).cpu().numpy()
+    if not np.array_equal(on_card, draws):
+        raise AssertionError("the card's unit draws differ from the CPU's")
+    card_unet = unet.build_unet_xception(**RNG_UNET, seed=0, device=device).state_dict()
+    digests["unet_kernels_0"] = kernels_digest({k: t.cpu() for k, t in card_unet.items()})
+    cpu_unet = unet.build_unet_xception(**RNG_UNET, seed=0, device="cpu").state_dict()
+    if kernels_digest(cpu_unet) != digests["unet_kernels_0"]:
+        raise AssertionError("the card's UNet init differs from the CPU's")
+    if digests != RNG_DIGESTS:
+        raise AssertionError(f"threefry digests {digests} differ from JAX's {RNG_DIGESTS}")
+
+    def resnet_init():
+        model = resnet.build_trainable_resnet50_tl(**RNG_RESNET, seed=0, device=device)
+        torch.cuda.synchronize()
+        return model
+
+    init_s = []
+    for _ in range(3):  # the first also loads the kernels the init launches
+        t0 = time.perf_counter()
+        model = resnet_init()
+        init_s.append(time.perf_counter() - t0)
+    n_params = sum(t.numel() for t in model.parameters())
+    card_state = {k: t.cpu() for k, t in model.state_dict().items()}
+    t0 = time.perf_counter()
+    cpu_state = resnet.build_trainable_resnet50_tl(**RNG_RESNET, seed=0, device="cpu").state_dict()
+    cpu_s = time.perf_counter() - t0
+    bad = [k for k in cpu_state if not torch.equal(cpu_state[k], card_state[k])]
+    if bad:
+        raise AssertionError(f"the card's ResNet50 init differs from the CPU's at {bad[:3]}")
+    emit("rng", digests=digests, card_equals_cpu=True, resnet50_params=n_params,
+         resnet50_init_s=init_s, resnet50_init_cpu_s=cpu_s, nvidia_smi=smi)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--wells", type=int, default=8)
@@ -1895,6 +1969,7 @@ def run_phases(args, tmp: Path, device, kind: str, smi: str) -> int:
     train_launches = phase_train(tmp, device)
     quant_run = phase_quant(rng, unet, plate_run, device, tmp)
     phase_package(fs_plate[:4], device, tmp)
+    phase_rng(device, smi)
 
     one_stack = focus_timings[0]  # (1, 8, 1024, 1024): what both paths launch
     kernels = [{

@@ -833,3 +833,33 @@ def test_quantized_forward_fused_equals_unfused(cuda):
     model.up_main = model.up_main_unfused
     unfused = model(x.to(cuda))
     assert torch.isfinite(fused).all() and torch.equal(fused, unfused)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(25000, 6), (3, 3, 64, 128), (7,)], ids=str)
+def test_prng_draws_equal_on_the_card_and_the_cpu(cuda, shape):
+    """The threefry streams of ``core/prng.py`` give the same bits on the
+    card as on the CPU (where the CPU tests hold them to ``jax.random``)."""
+    from tmat_torch.core import prng
+
+    key = prng.prng_key(3)
+    np.testing.assert_array_equal(prng.random_bits(key, shape, cuda).cpu().numpy(),
+                                  prng.random_bits(key, shape).numpy())
+    np.testing.assert_array_equal(prng.uniform(key, shape, device=cuda).cpu().numpy(),
+                                  prng.uniform(key, shape).numpy())
+    np.testing.assert_array_equal(prng.truncated_normal(key, -2, 2, shape, cuda).cpu().numpy(),
+                                  prng.truncated_normal(key, -2, 2, shape).numpy())
+
+
+@pytest.mark.gpu
+def test_trainable_inits_equal_on_the_card_and_the_cpu(cuda):
+    from tmat_torch.models import layers
+    from tmat_torch.models.resnet import build_trainable_resnet50_tl
+    from tmat_torch.models.unet import build_unet_xception
+
+    for build in (lambda d: build_unet_xception(1, (32, 32), filter_counts=(8, 16, 32), seed=4, device=d),
+                  lambda d: build_trainable_resnet50_tl(1, (32, 32, 3), "conv3_block1_out", seed=4, device=d)):
+        on_card, on_cpu = build(cuda).state_dict(), build("cpu").state_dict()
+        assert list(on_card) == list(on_cpu)
+        for k in on_cpu:
+            np.testing.assert_array_equal(on_card[k].cpu().numpy(), on_cpu[k].numpy(), err_msg=k)

@@ -11,8 +11,8 @@ depths). Tolerances: area within one pixel, stage-1 predictions within
 relative.
 
 With ``detect_well`` a second plate, whose wells are bright discs on a
-dark frame, goes through both; the port's superellipse search is given
-the JAX package's unit draws (``unit_draws`` patched), so the well masks
+dark frame, goes through both, with the port's own unit draws (JAX's) and
+with the JAX package's passed in (``unit_draws`` patched); the well masks
 and all that follows are held to the same tolerances.
 """
 
@@ -193,6 +193,17 @@ def test_run_plate_detect_well_matches_jax(setup, method, jax_draws, monkeypatch
     assert "well_mask" in out.pop("_timer").totals
     _assert_results_close(out, ref)
     assert len(fitted) == 3 and all(0.4 <= m.mean() < 1 and s.sum() < m.sum() for m, s in fitted)
+
+
+@pytest.mark.parametrize("method", ["max", "fs"])
+def test_run_plate_detect_well_default_draws_matches_jax(setup, method):
+    """Well detection with the port's own unit draws, nothing patched: the
+    same results as the JAX plate."""
+    ref = _jax_results(setup, method, detect_well=True)
+    out = tpp.run_plate(setup["well_plate"], ["W0", "W1", "W2"], setup["seg"], CONFIG, sd_coef=SD_COEF,
+                        detect_well=True, proj_method=method, z_counts=list(Z_COUNTS), device="cpu")
+    out.pop("_timer")
+    _assert_results_close(out, ref)
 
 
 def _write_plate(setup, key="plate"):

@@ -1,6 +1,7 @@
 """The port's ``compute_branches`` with ``-w`` against the JAX tool: a
 vessel network inside a bright disc, the shipped segmentor, and the port's
-well search given the JAX package's unit draws. Held to the outputs of
+well search with its own unit draws (JAX's) and with the JAX package's
+passed in. Held to the outputs of
 test_torch_tool_branches.py: byte-equal CSVs and ``config.json``, PNGs
 (the well mask among them) within one grey level.
 """
@@ -42,3 +43,12 @@ def test_main_2d_detect_well(tmp_path, jax_draws):
     assert rows[1][0] == "wellW"
 
 
+def test_main_2d_detect_well_default_draws(tmp_path):
+    """``-w`` with the port's own unit draws, nothing patched: the outputs
+    of the JAX tool, held as above."""
+    in_dir = tmp_path / "in"
+    in_dir.mkdir()
+    Image.fromarray(_disc_image()).save(in_dir / "wellD.tif")
+    out = _run_both(tmp_path, in_dir, ["--image-width-microns", "1000", "-w"])
+    assert (out / "visualizations" / "wellD" / "well_mask.png").is_file()
+    assert _rows(out / "branching_analysis.csv")[1][0] == "wellD"

@@ -2,10 +2,10 @@
 tools, both run on the same temp directory of inputs with ``device="cpu"``.
 
 Held to: the same file names and byte-equal files (projections of all five
-methods, ``_thresholded.png``, ``cell_area.csv``). With ``-w`` the port's
-search is given the JAX package's unit draws (``unit_draws`` patched), on
-wells where no Canny tie decides (see tests/test_torch_wellmask.py), and
-the well masks and the CSV are byte-equal too.
+methods, ``_thresholded.png``, ``cell_area.csv``). With ``-w``, on wells
+where no Canny tie decides (see tests/test_torch_wellmask.py), the well
+masks and the CSV are byte-equal too: with the port's own unit draws, which
+are JAX's, and with the JAX package's passed in (``unit_draws`` patched).
 """
 
 import filecmp
@@ -127,12 +127,8 @@ def test_cell_area_downsamples_and_max_projects(tmp_path):
     assert np.asarray(Image.open(tmp_path / "torch" / "thresholded" / "A01_thresholded.png")).shape == (64, 64)
 
 
-def test_cell_area_with_well_detection(tmp_path, monkeypatch):
-    """-w with the JAX package's draws: byte-equal masks, rasters and CSV."""
-    monkeypatch.setattr(
-        wellmask, "unit_draws",
-        lambda seed, num_iters=25000: np.asarray(
-            jax.random.uniform(jax.random.PRNGKey(seed), (num_iters, 6), jnp.float32)))
+def _write_wells(tmp_path):
+    """Two bright elliptic wells with a bright square at the centre."""
     rng = np.random.RandomState(3)
     in_dir = tmp_path / "wells"
     in_dir.mkdir()
@@ -143,6 +139,16 @@ def test_cell_area_with_well_detection(tmp_path, monkeypatch):
         img[inside] += 60
         img[h // 2 - 10 : h // 2 + 10, wd // 2 - 10 : wd // 2 + 10] = 220
         Image.fromarray(img).save(in_dir / f"w{w}.tif")
+    return in_dir
+
+
+def test_cell_area_with_well_detection(tmp_path, monkeypatch):
+    """-w with the JAX package's draws: byte-equal masks, rasters and CSV."""
+    monkeypatch.setattr(
+        wellmask, "unit_draws",
+        lambda seed, num_iters=25000: np.asarray(
+            jax.random.uniform(jax.random.PRNGKey(seed), (num_iters, 6), jnp.float32)))
+    in_dir = _write_wells(tmp_path)
     j_area.main(argv=[str(in_dir), str(tmp_path / "jax"), "-w", "--sd-coef=-2"])
     compute_cell_area.main(argv=[str(in_dir), str(tmp_path / "torch"), "-w", "--sd-coef=-2"], device="cpu")
     assert os.path.join("thresholded", "w0_well_mask.png") in _files(tmp_path / "torch")
@@ -151,6 +157,16 @@ def test_cell_area_with_well_detection(tmp_path, monkeypatch):
     pct = float(rows[1].split(",")[1])
     # of the well (about 55% of the frame), not of the frame
     assert abs(pct - 20 * 20 / (np.pi * (0.42 * 150) ** 2) * 100) < 3.0, pct
+
+
+def test_cell_area_with_default_well_detection(tmp_path):
+    """-w with the port's own draws, nothing patched: the same files as the
+    JAX tool, byte for byte."""
+    in_dir = _write_wells(tmp_path)
+    j_area.main(argv=[str(in_dir), str(tmp_path / "jax"), "-w", "--sd-coef=-2"])
+    compute_cell_area.main(argv=[str(in_dir), str(tmp_path / "torch"), "-w", "--sd-coef=-2"], device="cpu")
+    assert os.path.join("thresholded", "w1_well_mask.png") in _files(tmp_path / "torch")
+    _assert_same_tree(tmp_path / "torch", tmp_path / "jax")
 
 
 def test_analyze_images_is_file_free():

@@ -142,3 +142,57 @@ def test_train_invasion_writes_members_both_packages_load(tmp_path, model_dirs):
         probs = ensemble_forward([member], torch.randn(3, 32, 32, 3) * 30)
         assert probs.shape == (1, 3, 1) and torch.isfinite(probs).all()
         assert ((probs >= 0) & (probs <= 1)).all()
+
+
+class _Built(Exception):
+    """Raised by a patched builder once the trainer has built its model."""
+
+
+@pytest.mark.parametrize("trainer", ["segmentation", "invasion"])
+def test_trainers_start_from_the_jax_init_of_the_same_seed(tmp_path, model_dirs, monkeypatch, trainer):
+    """Both packages' trainers from the same flags (``--seed 7``), nothing
+    carried across: the variables each builds before its first step are
+    the same, leaf for leaf, bit for bit."""
+    import jax
+    from tmat_torch.models.layers import flatten_tree, flax_variables
+
+    built = {}
+
+    def capture(module, name, key):
+        original = getattr(module, name)
+
+        def build(*a, **k):
+            out = original(*a, **k)
+            built[key] = (flax_variables(out) if key == "port"
+                          else jax.tree.map(np.asarray, out[1]))
+            raise _Built
+        monkeypatch.setattr(module, name, build)
+
+    if trainer == "segmentation":
+        from tmat_tpu.models import train_segmentation as jtrain
+        from tmat_torch.models import train_segmentation as ttrain
+
+        capture(jtrain, "build_unet_xception", "jax")
+        capture(ttrain, "build_unet_xception", "port")
+        argv = [str(_seg_data(tmp_path / "seg", n=4)), "--patch-size", "16", "--filters", "4", "8",
+                "--batch-size", "2", "--ds-ratio", "1.0", "--seed", "7"]
+    else:
+        from tmat_tpu.models import train_invasion as jtrain
+        from tmat_torch.models import train_invasion as ttrain
+        from tmat_torch.models.synthetic import generate_invasion_dataset
+
+        capture(jtrain, "build_resnet50_tl", "jax")
+        capture(ttrain, "build_trainable_resnet50_tl", "port")
+        generate_invasion_dataset(tmp_path / "inv", n_per_class=4, size=40, seed=0)
+        argv = [str(tmp_path / "inv"), "--n-models", "1", "--batch-size", "2", "--img-size", "32",
+                "--last-layer", "conv2_block3_out", "--seed", "7"]
+    with pytest.raises(_Built):
+        jtrain.main(argv)
+    with pytest.raises(_Built):
+        ttrain.main(argv, device="cpu")
+    port, ref = built["port"], built["jax"]
+    for col in ("params", "batch_stats"):
+        p, r = flatten_tree(port[col]), flatten_tree(dict(ref[col]))
+        assert sorted(p) == sorted(r) and len(p) > 10
+        for name in p:
+            np.testing.assert_array_equal(p[name], r[name], err_msg=name)

@@ -17,21 +17,24 @@ order, that makes the ``{"params", "batch_stats"}`` tree of
   momentum), and ``(x − mean)·(rsqrt(var + eps)·scale) + bias``. With
   ``use_running_average`` it always normalises with the running statistics,
   in training too.
-- ``lecun_normal_``: Flax's default kernel init, a normal truncated at ±2σ,
-  σ = sqrt(1/fan_in)/0.8796…, drawn from an explicit ``torch.Generator``.
+- ``init_kernels``: Flax's ``model.init(PRNGKey(seed))`` for the kernels:
+  each is lecun-normal (a normal truncated at ±2σ, σ = sqrt(1/fan_in)/0.8796…)
+  drawn from the key Flax derives from its path and its place in its
+  module (``core/prng.py``), so the same seed gives the JAX package's
+  values.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
+from tmat_torch.core import prng
+
 STATS = ("mean", "var")  # the batch_stats leaves; every other leaf is a param
-_TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated at ±2
 
 
 class BatchNorm(nn.Module):
@@ -79,22 +82,25 @@ class Conv(nn.Module):
         return self.kernel.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
 
 
-def lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """Flax's ``lecun_normal`` in place: fan-in = every axis but the last."""
-    fan_in = int(np.prod(t.shape[:-1]))
-    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-    with torch.no_grad():
-        return nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
-
-
 def init_kernels(module: nn.Module, seed: int, zero: Sequence[str] = ()) -> None:
-    """Draw every ``kernel`` of ``module`` (in registration order) from
-    ``torch.Generator().manual_seed(seed)``; the kernels named in ``zero``
-    (state-dict names) start at zero."""
-    gen = torch.Generator().manual_seed(int(seed))
-    for name, p in module.named_parameters():
-        if name.endswith(".kernel") and name not in zero:
-            lecun_normal_(p, gen)
+    """Draw every ``kernel`` of ``module`` as Flax's ``model.init(
+    jax.random.PRNGKey(seed))`` does, on the kernel's device: lecun-normal
+    from ``prng.flax_param_key(root, path, counter)``, where ``path`` is the
+    module scope of its Flax name and ``counter`` its place among that
+    scope's params in the Flax tree (kernel 1, bias 2; a BatchNorm's scale
+    and bias count too). The kernels named in ``zero`` (state-dict names)
+    start at zero."""
+    root = prng.prng_key(seed)
+    counters: Dict[str, int] = {}
+    with torch.no_grad():
+        for key, t in module.state_dict(keep_vars=True).items():
+            scope, leaf = key.rsplit(".", 1)
+            if leaf in STATS:
+                continue
+            counters[scope] = counters.get(scope, 0) + 1
+            if leaf == "kernel" and key not in zero:
+                pkey = prng.flax_param_key(root, scope.split("."), counters[scope])
+                t.copy_(prng.lecun_normal(pkey, tuple(t.shape), t.device))
 
 
 def nest_tree(flat: Dict[str, Any]) -> Dict[str, Any]:

@@ -228,16 +228,17 @@ def build_trainable_resnet50_tl(
     device: DeviceLike = None,
 ) -> TrainableResNet50TL:
     """The trainable classifier on ``device`` (None = CUDA), initialised as
-    Flax initialises it: lecun-normal kernels from ``torch.Generator``
-    seeded with ``seed``, zero biases, BN scale 1 and statistics 0 / 1, and
-    a zero head (``tmat_tpu/models/resnet.py``: with a random base a random
-    head saturates the sigmoid)."""
+    Flax's ``model.init(jax.random.PRNGKey(seed))`` initialises it: the same
+    lecun-normal kernels (``layers.init_kernels``, drawn on ``device``), zero
+    biases, BN scale 1 and statistics 0 / 1, and a zero head
+    (``tmat_tpu/models/resnet.py``: with a random base a random head
+    saturates the sigmoid)."""
     if tuple(img_shape)[-1] != 3:
         raise ValueError(f"the classifier takes 3-channel inputs, not {img_shape}")
     dev = resolve_device(device)
-    model = TrainableResNet50TL(n_outputs, base_last_layer, output_act)
+    model = TrainableResNet50TL(n_outputs, base_last_layer, output_act).to(dev)
     init_kernels(model, seed, zero=("head.kernel",))
-    return model.to(dev)
+    return model
 
 
 def build_resnet50_tl(

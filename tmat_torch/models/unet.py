@@ -260,17 +260,19 @@ def build_unet_xception(
     bn_momentum: float = 0.99,
     device: DeviceLike = None,
 ) -> TrainableUNetXception:
-    """The trainable UNet on ``device`` (None = CUDA), initialised as Flax
-    initialises it (lecun-normal kernels drawn from ``torch.Generator``
-    seeded with ``seed``, zero biases, BN scale 1, statistics 0 / 1).
+    """The trainable UNet on ``device`` (None = CUDA), initialised as Flax's
+    ``model.init(jax.random.PRNGKey(seed))`` initialises it: the same
+    lecun-normal kernels (``layers.init_kernels``, drawn on ``device``), zero
+    biases, BN scale 1, statistics 0 / 1.
     ``img_shape`` (the patch size) must be divisible by 2**len(filter_counts)."""
     dev = resolve_device(device)
     h, w = img_shape
     if h % 2 ** len(filter_counts) or w % 2 ** len(filter_counts):
         raise ValueError(f"patch {img_shape} is not divisible by 2**{len(filter_counts)}")
-    model = TrainableUNetXception(n_outputs, tuple(filter_counts), output_act, bn_momentum, channels)
+    model = TrainableUNetXception(n_outputs, tuple(filter_counts), output_act, bn_momentum,
+                                  channels).to(dev)
     init_kernels(model, seed)
-    return model.to(dev)
+    return model
 
 
 class UNetXceptionPatchSegmentor:

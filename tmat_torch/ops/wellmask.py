@@ -12,11 +12,10 @@ The raster stages run on the image's device; the search is one vectorised
 feasibility test and area argmin there; the convex hull (scipy, dozens of
 points) stays on the host.
 
-The search's unit draws are an argument. When none are given they come from
-a ``torch.Generator`` seeded with ``seed`` on the CPU, so the card and the
-CPU fit the same mask. That stream is not ``jax.random``'s: for one
-``seed`` the JAX package draws other candidates, and the fitted masks
-differ by the search's own scatter.
+The search's unit draws are an argument. When none are given they are
+``jax.random.uniform(PRNGKey(seed), (25000, 6))``'s, bit for bit
+(``core/prng.py``), drawn on the CPU: every device and the JAX package
+search the same candidates for one ``seed``.
 """
 
 from __future__ import annotations
@@ -27,6 +26,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from tmat_torch.core import prng
 from tmat_torch.core.log import SFM
 from tmat_torch.ops import morphology
 from tmat_torch.ops.canny import canny
@@ -76,11 +76,9 @@ def _median(x: torch.Tensor) -> torch.Tensor:
 
 
 def unit_draws(seed: int, num_iters: int = NUM_ITERS) -> np.ndarray:
-    """The search's default (num_iters, 6) float32 draws in [0, 1), from a
-    CPU generator so that every device sees the same candidates."""
-    gen = torch.Generator(device="cpu")
-    gen.manual_seed(int(seed))
-    return torch.rand((num_iters, 6), generator=gen, dtype=torch.float32).numpy()
+    """The search's default (num_iters, 6) float32 draws in [0, 1):
+    ``jax.random.uniform(jax.random.PRNGKey(seed), (num_iters, 6))``."""
+    return prng.uniform(prng.prng_key(seed), (num_iters, 6)).numpy()
 
 
 def _superellipse_search(x: torch.Tensor, y: torch.Tensor, point_mask: torch.Tensor, n: int,
