@@ -122,11 +122,18 @@ def test_float32_functions_equal_xla(fn):
     np.testing.assert_array_equal(out, np.asarray(jax.jit(ref)(x)))
 
 
-def test_lecun_normal_equals_flax():
-    for shape in [(3, 3, 1, 8), (1, 1, 16, 32), (64, 10)]:
-        key = jax.random.PRNGKey(11)
+@pytest.mark.parametrize("batch", [1 << 20, 100])
+def test_lecun_normal_equals_flax(batch, monkeypatch):
+    """Several kernels drawn together, each under its own key, in one batch
+    or (``_BATCH`` lowered) in several."""
+    monkeypatch.setitem(prng._BATCH, "cpu", batch)
+    shapes = [(3, 3, 1, 8), (1, 1, 16, 32), (64, 10), (3, 3, 4, 4)]
+    keys = [jax.random.PRNGKey(s) for s in (11, 12, -3, 2**31 - 1)]
+    out = prng.lecun_normal([prng.prng_key(s) for s in (11, 12, -3, 2**31 - 1)], shapes)
+    assert [tuple(t.shape) for t in out] == shapes
+    for key, shape, t in zip(keys, shapes, out):
         ref = np.asarray(nn.initializers.lecun_normal()(key, shape, jnp.float32))
-        np.testing.assert_array_equal(prng.lecun_normal(prng.prng_key(11), shape).numpy(), ref)
+        np.testing.assert_array_equal(t.numpy(), ref)
 
 
 class _Two(nn.Module):
@@ -145,9 +152,9 @@ def test_flax_param_key_is_the_key_init_hands_out():
     params = variables["params"]
     root = prng.prng_key(seed)
     k = prng.flax_param_key(root, ["first"], 1)
-    np.testing.assert_array_equal(prng.lecun_normal(k, (3, 3, 2, 4)).numpy(), params["first"]["kernel"])
+    np.testing.assert_array_equal(prng.lecun_normal([k], [(3, 3, 2, 4)])[0].numpy(), params["first"]["kernel"])
     k = prng.flax_param_key(root, ["Dense_0"], 1)
-    np.testing.assert_array_equal(prng.lecun_normal(k, (4, 3)).numpy(), params["Dense_0"]["kernel"])
+    np.testing.assert_array_equal(prng.lecun_normal([k], [(4, 3)])[0].numpy(), params["Dense_0"]["kernel"])
     k = jnp.asarray(prng.flax_param_key(root, ["Dense_0"], 2), jnp.uint32)
     ref = nn.initializers.normal(1.0)(jax.random.wrap_key_data(k), (3,), jnp.float32)
     np.testing.assert_array_equal(ref, params["Dense_0"]["bias"])

@@ -212,6 +212,39 @@ def test_unet_train_step_matches_jax():
         np.testing.assert_allclose(a, stats[k], atol=1e-7, rtol=0, err_msg=k)
 
 
+def test_unet_float64_step_matches_jax():
+    """The port's UNet as a float64 reference (``.double()``: the input cast
+    to the weights' dtype, float64 kernels in the default layout), as
+    ``chip_smoke.py`` holds the card's float32 gradients to it, against
+    JAX's float64 step. Both round the logits to float32, where a last-bit
+    difference of the float64 sums can flip a rounding: loss within 1e-8
+    relative, gradients within 1e-7 of the largest (the chip check's
+    smallest tolerance is 1e-6 of it; float32 steps sit near 1e-4)."""
+    model, v, net = _unet_pair()
+    x, y, w = _seg_batch()
+    net = net.double()
+
+    def jloss(params, variables, mod):
+        out = mod.apply({"params": params, "batch_stats": variables["batch_stats"]},
+                        x.astype(np.float64), train=True, mutable=["batch_stats"])[0]
+        return JT.weighted_bce(out, y.astype(np.float64), w.astype(np.float64))
+
+    with jax.enable_x64():
+        v64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), v)
+        m64 = JaxUNet(1, FILTERS, bn_momentum=0.9, dtype=jnp.float64)
+        ref_loss, g64 = jax.jit(jax.value_and_grad(lambda p: jloss(p, v64, m64)))(v64["params"])
+        ref_loss, g64 = float(ref_loss), _flat(g64)
+    net.train()
+    out = net(torch.tensor(x, dtype=torch.float64))
+    assert out.dtype == torch.float32 and net.Conv_0.kernel.dtype == torch.float64
+    loss = T.weighted_bce(out, torch.tensor(y, dtype=torch.float64), torch.tensor(w, dtype=torch.float64))
+    loss.backward()
+    assert abs(loss.item() - ref_loss) <= 1e-8 * abs(ref_loss)
+    gmax = max(np.abs(a).max() for a in g64.values())
+    for k, p in net.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), g64[k], atol=1e-7 * gmax, rtol=0, err_msg=k)
+
+
 def test_jax_float32_batchnorm_cancels():
     """Why the UNet's gradients are held in float64: with Flax's own init
     (seed 0) JAX's float32 train-mode gradients sit far from its float64

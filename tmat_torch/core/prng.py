@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import hashlib
 import math
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +51,10 @@ _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 FLAX_RNG_SEPARATOR = b""
 
 Key = Tuple[int, int]
+# elements that lecun_normal draws together: on the CPU a batch whose
+# int64 temporaries stay in the caches (1 << 22 took twice as long), on the
+# card one large enough that the launches do not dominate
+_BATCH = {"cpu": 1 << 20, "cuda": 1 << 24}
 
 
 def prng_key(seed: int) -> Key:
@@ -59,24 +63,20 @@ def prng_key(seed: int) -> Key:
     return 0, int(seed) & _MASK
 
 
-def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
-    return ((v << r) & _MASK) | (v >> (32 - r))
-
-
-def threefry2x32(k1: int, k2: int, x0: torch.Tensor, x1: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+def threefry2x32(k1, k2, x0, x1):
     """The Threefry-2x32 hash (20 rounds) of the counter pairs ``(x0, x1)``
-    (uint32 values in int64 tensors of one shape) under the key
-    ``(k1, k2)``; JAX's ``threefry2x32_p``."""
+    under the key ``(k1, k2)``; JAX's ``threefry2x32_p``. Each is a uint32
+    as a Python int or an int64 tensor (a key per element, or counters of
+    any shape): the same operators serve both, so a key is derived on the
+    host without a device launch."""
     ks = (k1 & _MASK, k2 & _MASK, (k1 ^ k2 ^ _PARITY) & _MASK)
-    a = (x0.to(torch.int64) + ks[0]) & _MASK
-    b = (x1.to(torch.int64) + ks[1]) & _MASK
+    a, b = (x0 + ks[0]) & _MASK, (x1 + ks[1]) & _MASK
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            a = a.add_(b).bitwise_and_(_MASK)
-            b = _rotl(b, r).bitwise_xor_(a)
-        a = a.add_(ks[(i + 1) % 3]).bitwise_and_(_MASK)
-        b = b.add_(ks[(i + 2) % 3] + i + 1).bitwise_and_(_MASK)
+            a = (a + b) & _MASK
+            b = (((b << r) & _MASK) | (b >> (32 - r))) ^ a
+        a = (a + ks[(i + 1) % 3]) & _MASK
+        b = (b + ks[(i + 2) % 3] + (i + 1)) & _MASK
     return a, b
 
 
@@ -96,14 +96,12 @@ def random_bits(key: Key, shape: Sequence[int], device: DeviceLike = "cpu") -> t
     """``jax.random.bits(key, shape, uint32)``: uint32 values in an int64
     tensor."""
     bits1, bits2 = _bits_pair(key, shape, device)
-    return bits1.bitwise_xor_(bits2)
+    return bits1 ^ bits2
 
 
 def fold_in(key: Key, data: int) -> Key:
     """``jax.random.fold_in(key, data)`` for a uint32 ``data``."""
-    a, b = threefry2x32(key[0], key[1], torch.zeros(1, dtype=torch.int64),
-                        torch.tensor([int(data) & _MASK], dtype=torch.int64))
-    return int(a[0]), int(b[0])
+    return threefry2x32(key[0], key[1], 0, int(data) & _MASK)
 
 
 def split(key: Key, num: int = 2) -> list:
@@ -133,12 +131,15 @@ def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
     return (a.double() * b + c).float()
 
 
+def _uniform_from_bits(bits: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
+    lo, hi = _f32(minval), _f32(maxval)
+    return torch.clamp_min(_fma(_float_from_bits(bits), _f32(hi - lo), lo), lo)
+
+
 def uniform(key: Key, shape: Sequence[int], minval: float = 0.0, maxval: float = 1.0,
             device: DeviceLike = "cpu") -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
-    lo, hi = _f32(minval), _f32(maxval)
-    floats = _float_from_bits(random_bits(key, shape, device))
-    return torch.clamp_min(_fma(floats, _f32(hi - lo), lo), lo)
+    return _uniform_from_bits(random_bits(key, shape, device), minval, maxval)
 
 
 # Cephes' logf, as XLA's CPU ``log`` evaluates it: its polynomial on
@@ -235,20 +236,23 @@ def _erf(x: torch.Tensor) -> torch.Tensor:
     return (x * _horner(x2, _ERF_NUM)) / _horner(x2, _ERF_DEN)
 
 
+def _truncated_from_bits(bits: torch.Tensor, lower: float, upper: float) -> torch.Tensor:
+    sqrt2 = _f32(math.sqrt(2))
+    bounds = torch.tensor([lower, upper], dtype=torch.float32)
+    # XLA turns the division by a constant into a product with its reciprocal
+    a, b = _erf(bounds * _f32(1.0 / sqrt2)).tolist()
+    out = erf_inv(_uniform_from_bits(bits, a, b)) * sqrt2
+    lo = np.nextafter(np.float32(lower), np.float32(np.inf))
+    hi = np.nextafter(np.float32(upper), np.float32(-np.inf))
+    return out.clamp_(float(lo), float(hi))
+
+
 def truncated_normal(key: Key, lower: float, upper: float, shape: Sequence[int],
                      device: DeviceLike = "cpu") -> torch.Tensor:
     """``jax.random.truncated_normal(key, lower, upper, shape, float32)``:
     ``sqrt(2) * erf_inv(u)`` for ``u`` uniform between the bounds' ``erf``,
     clipped to the open interval between the bounds."""
-    sqrt2 = _f32(math.sqrt(2))
-    bounds = torch.tensor([lower, upper], dtype=torch.float32)
-    # XLA turns the division by a constant into a product with its reciprocal
-    a, b = _erf(bounds * _f32(1.0 / sqrt2)).tolist()
-    u = uniform(key, shape, a, b, device)
-    out = erf_inv(u) * sqrt2
-    lo = np.nextafter(np.float32(lower), np.float32(np.inf))
-    hi = np.nextafter(np.float32(upper), np.float32(-np.inf))
-    return out.clamp_(float(lo), float(hi))
+    return _truncated_from_bits(random_bits(key, shape, device), lower, upper)
 
 
 def flax_param_key(root: Key, path: Sequence[str], counter: int) -> Key:
@@ -265,10 +269,38 @@ def flax_param_key(root: Key, path: Sequence[str], counter: int) -> Key:
     return fold_in(root, int.from_bytes(m.digest()[:4], "big"))
 
 
-def lecun_normal(key: Key, shape: Sequence[int], device: DeviceLike = "cpu") -> torch.Tensor:
-    """Flax's default kernel init, ``lecun_normal()(key, shape, float32)``:
-    ``truncated_normal(-2, 2) * sqrt(1 / fan_in) / 0.8796...``, fan-in =
-    every axis but the last."""
-    fan_in = math.prod(shape[:-1])
-    stddev = np.sqrt(np.float32(1.0 / fan_in)) / np.float32(0.87962566103423978)
-    return truncated_normal(key, -2.0, 2.0, shape, device) * float(stddev)
+def lecun_normal(keys: Sequence[Key], shapes: Sequence[Sequence[int]],
+                 device: DeviceLike = "cpu") -> List[torch.Tensor]:
+    """Flax's default kernel init, ``lecun_normal()(keys[i], shapes[i],
+    float32)`` for every i: ``truncated_normal(-2, 2) * sqrt(1 / fan_in) /
+    0.8796...``, fan-in = every axis but the last. The arrays are drawn
+    together, up to ``_BATCH`` elements to a hash, so that a model's
+    hundreds of kernels take a few hundred launches, not tens of
+    thousands."""
+    batch = _BATCH[torch.device(device).type]
+    out: List[torch.Tensor] = []
+    i = 0
+    while i < len(shapes):
+        j, size = i + 1, math.prod(shapes[i])
+        while j < len(shapes) and size + math.prod(shapes[j]) <= batch:
+            size += math.prod(shapes[j])
+            j += 1
+        out += _lecun_normal_batch(keys[i:j], shapes[i:j], device)
+        i = j
+    return out
+
+
+def _lecun_normal_batch(keys, shapes, device) -> List[torch.Tensor]:
+    sizes = [math.prod(shape) for shape in shapes]
+    counts = torch.tensor(sizes, device=device)
+    key = torch.tensor(keys, dtype=torch.int64, device=device).reshape(-1, 2)
+    starts = torch.cumsum(counts, 0) - counts
+    # each array's own flat index: its counter under its own key
+    idx = torch.arange(sum(sizes), device=device) - torch.repeat_interleave(starts, counts)
+    bits1, bits2 = threefry2x32(torch.repeat_interleave(key[:, 0], counts),
+                                torch.repeat_interleave(key[:, 1], counts), idx >> 32, idx & _MASK)
+    std = [np.sqrt(np.float32(1.0 / math.prod(shape[:-1]))) / np.float32(0.87962566103423978)
+           for shape in shapes]
+    std = torch.repeat_interleave(torch.tensor(np.array(std, np.float32), device=device), counts)
+    values = _truncated_from_bits(bits1 ^ bits2, -2.0, 2.0) * std
+    return [v.reshape(tuple(shape)) for v, shape in zip(torch.split(values, sizes), shapes)]

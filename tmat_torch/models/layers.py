@@ -78,8 +78,11 @@ class Conv(nn.Module):
 
     def oihw(self) -> torch.Tensor:
         """The conv kernel as PyTorch's (out, in, kh, kw), stored channels
-        last (the layout of the NHWC activations it meets)."""
-        return self.kernel.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        last (the layout of the NHWC activations it meets); a float64 kernel
+        (a reference model) in the default layout, the only one PyTorch's
+        float64 convolution backward on the CPU takes."""
+        fmt = torch.contiguous_format if self.kernel.dtype == torch.float64 else torch.channels_last
+        return self.kernel.permute(3, 2, 0, 1).contiguous(memory_format=fmt)
 
 
 def init_kernels(module: nn.Module, seed: int, zero: Sequence[str] = ()) -> None:
@@ -92,15 +95,21 @@ def init_kernels(module: nn.Module, seed: int, zero: Sequence[str] = ()) -> None
     start at zero."""
     root = prng.prng_key(seed)
     counters: Dict[str, int] = {}
+    kernels, keys = [], []
+    for key, t in module.state_dict(keep_vars=True).items():
+        scope, leaf = key.rsplit(".", 1)
+        if leaf in STATS:
+            continue
+        counters[scope] = counters.get(scope, 0) + 1
+        if leaf == "kernel" and key not in zero:
+            kernels.append(t)
+            keys.append(prng.flax_param_key(root, scope.split("."), counters[scope]))
+    if not kernels:
+        return
+    drawn = prng.lecun_normal(keys, [tuple(t.shape) for t in kernels], kernels[0].device)
     with torch.no_grad():
-        for key, t in module.state_dict(keep_vars=True).items():
-            scope, leaf = key.rsplit(".", 1)
-            if leaf in STATS:
-                continue
-            counters[scope] = counters.get(scope, 0) + 1
-            if leaf == "kernel" and key not in zero:
-                pkey = prng.flax_param_key(root, scope.split("."), counters[scope])
-                t.copy_(prng.lecun_normal(pkey, tuple(t.shape), t.device))
+        for t, value in zip(kernels, drawn):
+            t.copy_(value)
 
 
 def nest_tree(flat: Dict[str, Any]) -> Dict[str, Any]:

@@ -68,8 +68,10 @@ def _upsample2(x: torch.Tensor) -> torch.Tensor:
 
 
 def _pointwise(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """1x1 conv with f32 accumulation, rounded once to x's dtype."""
-    return (x.float() @ w.float() + b).to(x.dtype)
+    """1x1 conv accumulated in f32 (f64 for an f64 x), rounded once to x's
+    dtype."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return (x.to(acc) @ w.to(acc) + b).to(x.dtype)
 
 
 class UNetXception(nn.Module):
@@ -170,8 +172,9 @@ class SeparableConv(nn.Module):
 
 
 class TrainableUNetXception(nn.Module):
-    """``tmat_tpu.models.unet.UNetXception``, trainable: NHWC float32 in,
-    probabilities out; BatchNorm (momentum ``bn_momentum``, eps 1e-3) uses
+    """``tmat_tpu.models.unet.UNetXception``, trainable: NHWC in, cast to
+    the weights' dtype (float32; float64 for a reference, as JAX's
+    ``dtype``), float32 probabilities out; BatchNorm (momentum ``bn_momentum``, eps 1e-3) uses
     batch statistics in train mode and updates its running ones. Submodules
     carry the Flax names in Flax's creation order (``layers``)."""
 
@@ -222,7 +225,8 @@ class TrainableUNetXception(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n_down, n_up = self.n_down, self.n_up
-        x = torch.relu(self._layer("BatchNorm_0")(self._conv(x.float(), "Conv_0", 2)))
+        x = x.to(self._layer("Conv_0").kernel.dtype)
+        x = torch.relu(self._layer("BatchNorm_0")(self._conv(x, "Conv_0", 2)))
         previous = x
         for i in range(n_down):
             if i:
@@ -242,7 +246,7 @@ class TrainableUNetXception(nn.Module):
             res = self._layer(f"Conv_{1 + n_down + j}")
             x = _upsample2(h + _pointwise(previous, res.kernel[0, 0], res.bias))
             previous = x
-        y = self._conv(x, f"Conv_{1 + n_down + n_up}")
+        y = self._conv(x, f"Conv_{1 + n_down + n_up}").float()  # as JAX's x.astype(float32)
         if self.output_act == "sigmoid":
             return torch.sigmoid(y)
         if self.output_act == "softmax":

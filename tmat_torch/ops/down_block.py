@@ -101,9 +101,10 @@ def random_block(rng, b: int, h: int, c: int, f: int, dtype: torch.dtype, device
 
 
 def _depthwise(x: torch.Tensor, dw: torch.Tensor) -> torch.Tensor:
-    """3x3 SAME depthwise conv of an NHWC f32 tensor; ``dw`` is (9, C)."""
+    """3x3 SAME depthwise conv of an NHWC f32 (or f64) tensor, in its
+    dtype; ``dw`` is (9, C)."""
     c = x.shape[-1]
-    weight = dw.float().t().reshape(c, 1, 3, 3)
+    weight = dw.to(x.dtype).t().reshape(c, 1, 3, 3)
     y = F.conv2d(x.permute(0, 3, 1, 2), weight, padding=1, groups=c)
     return y.permute(0, 2, 3, 1)
 
