@@ -32,9 +32,12 @@ def assert_same_variables(port: dict, ref: dict) -> None:
             np.testing.assert_array_equal(a, b, err_msg=name)
 
 
+FILTERS = (8, 16, 32)
+
+
 @pytest.mark.parametrize("seed", [0, 3, -1])
-@pytest.mark.parametrize("filters", [(8, 16, 32), (4, 8)], ids=str)
-def test_unet_init_equals_flax(seed, filters):
+def test_unet_init_equals_flax(seed):
+    filters = FILTERS
     _, ref = jax_unet(1, (32, 32), channels=1, filter_counts=filters, seed=seed)
     port = build_unet_xception(1, (32, 32), channels=1, filter_counts=filters, seed=seed, device="cpu")
     assert_same_variables(flax_variables(port), ref)
@@ -43,8 +46,8 @@ def test_unet_init_equals_flax(seed, filters):
 
 
 def test_unet_seeds_differ():
-    a = flax_variables(build_unet_xception(1, (32, 32), filter_counts=(4, 8), seed=1, device="cpu"))
-    b = flax_variables(build_unet_xception(1, (32, 32), filter_counts=(4, 8), seed=2, device="cpu"))
+    a = flax_variables(build_unet_xception(1, (32, 32), filter_counts=FILTERS, seed=1, device="cpu"))
+    b = flax_variables(build_unet_xception(1, (32, 32), filter_counts=FILTERS, seed=2, device="cpu"))
     assert not np.array_equal(a["params"]["Conv_0"]["kernel"], b["params"]["Conv_0"]["kernel"])
 
 
@@ -73,7 +76,7 @@ def test_init_draws_no_torch_generator(monkeypatch):
     for name in ("rand", "randn", "normal", "manual_seed"):
         monkeypatch.setattr(torch, name, refuse)
     monkeypatch.setattr(torch.nn.init, "trunc_normal_", refuse)
-    port = build_unet_xception(1, (32, 32), filter_counts=(4, 8), seed=5, device="cpu")
-    _, ref = jax_unet(1, (32, 32), filter_counts=(4, 8), seed=5)
+    port = build_unet_xception(1, (32, 32), filter_counts=FILTERS, seed=5, device="cpu")
+    _, ref = jax_unet(1, (32, 32), filter_counts=FILTERS, seed=5)
     np.testing.assert_array_equal(port.state_dict()["Conv_0.kernel"].numpy(),
                                   np.asarray(ref["params"]["Conv_0"]["kernel"]))

@@ -51,8 +51,8 @@ def test_prng_key(seed):
 def test_random_bits_and_uniform(seed, shape):
     key = jax.random.PRNGKey(seed)
     bits = prng.random_bits(prng.prng_key(seed), shape)
-    assert bits.dtype == torch.int64 and tuple(bits.shape) == shape
-    np.testing.assert_array_equal(bits.numpy().astype(np.uint32),
+    assert bits.dtype == torch.int32 and tuple(bits.shape) == shape
+    np.testing.assert_array_equal(bits.numpy().view(np.uint32),
                                   np.asarray(jax.random.bits(key, shape, jnp.uint32)))
     out = prng.uniform(prng.prng_key(seed), shape).numpy()
     ref = np.asarray(jax.random.uniform(key, shape, jnp.float32))
@@ -102,20 +102,20 @@ def test_truncated_normal_bounds(bounds):
 
 @pytest.mark.parametrize("fn", ["erf", "log", "log1p", "erf_inv"])
 def test_float32_functions_equal_xla(fn):
-    """The float32 functions under ``truncated_normal``, each on a million
+    """The float32 functions under ``truncated_normal``, each on 250,000
     points of its range, against the XLA function on the CPU."""
     rng = np.random.RandomState(0)
     if fn == "erf":
-        x = rng.uniform(-4.5, 4.5, 1_000_000)
+        x = rng.uniform(-4.5, 4.5, 250_000)
         ours, ref = prng._erf, lax.erf
     elif fn == "log":
-        x = np.concatenate([rng.uniform(2.0**-126, 4, 999_998), [1.0, 2.0**-126]])
+        x = np.concatenate([rng.uniform(2.0**-126, 4, 249_998), [1.0, 2.0**-126]])
         ours, ref = prng._log, jnp.log
     elif fn == "log1p":
-        x = np.concatenate([-rng.uniform(-1, 1, 999_999) ** 2, [0.0]])
+        x = np.concatenate([-rng.uniform(-1, 1, 249_999) ** 2, [0.0]])
         ours, ref = prng._log1p, lax.log1p
     else:
-        x = np.concatenate([rng.uniform(-1, 1, 999_996), np.linspace(-1, 1, 4)])
+        x = np.concatenate([rng.uniform(-1, 1, 249_996), np.linspace(-1, 1, 4)])
         ours, ref = prng.erf_inv, lax.erf_inv
     x = x.astype(np.float32)
     out = ours(torch.from_numpy(x)).numpy()

@@ -16,9 +16,10 @@ It follows JAX's defaults:
   Python int seed (negative seeds in two's complement), and the key's high
   word is 0.
 
-Values are uint32 held in int64 tensors and masked after each operation
-that can carry past bit 31. Everything runs on the device it is given and
-gives the same bits on every device.
+Counters and bits are uint32 values held in int32 tensors (their bits;
+PyTorch's int32 sums wrap like uint32 ones, and its left shift drops the
+high bits), keys are Python ints. Everything runs on the device it is
+given and gives the same bits on every device.
 
 ``truncated_normal`` copies, step by step, XLA's float32 ``erf`` (for the
 bounds), ``log`` (Cephes' logf), ``log1p`` (Cephes' rational form below
@@ -52,7 +53,7 @@ FLAX_RNG_SEPARATOR = b""
 
 Key = Tuple[int, int]
 # elements that lecun_normal draws together: on the CPU a batch whose
-# int64 temporaries stay in the caches (1 << 22 took twice as long), on the
+# temporaries stay in the caches (1 << 22 took twice as long), on the
 # card one large enough that the launches do not dominate
 _BATCH = {"cpu": 1 << 20, "cuda": 1 << 24}
 
@@ -63,57 +64,67 @@ def prng_key(seed: int) -> Key:
     return 0, int(seed) & _MASK
 
 
+def _s32(v: int) -> int:
+    """A uint32 as the int32 with its bits."""
+    v &= _MASK
+    return v - (1 << 32) if v >> 31 else v
+
+
 def threefry2x32(k1, k2, x0, x1):
     """The Threefry-2x32 hash (20 rounds) of the counter pairs ``(x0, x1)``
     under the key ``(k1, k2)``; JAX's ``threefry2x32_p``. Each is a uint32
-    as a Python int or an int64 tensor (a key per element, or counters of
-    any shape): the same operators serve both, so a key is derived on the
-    host without a device launch."""
-    ks = (k1 & _MASK, k2 & _MASK, (k1 ^ k2 ^ _PARITY) & _MASK)
-    a, b = (x0 + ks[0]) & _MASK, (x1 + ks[1]) & _MASK
+    as an int32: a Python int, or an int32 tensor (a key per element, or
+    counters of any shape). The same operators serve both, so a key is
+    derived on the host without a device launch; Python ints are wrapped to
+    32 bits after each step, tensors wrap by themselves."""
+    wrap = (lambda v: v) if isinstance(x0, torch.Tensor) or isinstance(k1, torch.Tensor) else _s32
+    ks = (k1, k2, k1 ^ k2 ^ _s32(_PARITY))
+    a, b = wrap(x0 + ks[0]), wrap(x1 + ks[1])
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            a = (a + b) & _MASK
-            b = (((b << r) & _MASK) | (b >> (32 - r))) ^ a
-        a = (a + ks[(i + 1) % 3]) & _MASK
-        b = (b + ks[(i + 2) % 3] + (i + 1)) & _MASK
+            a = wrap(a + b)
+            # rotate left: the right shift is arithmetic, so keep its low r bits
+            b = (wrap(b << r) | ((b >> (32 - r)) & ((1 << r) - 1))) ^ a
+        a = wrap(a + ks[(i + 1) % 3])
+        b = wrap(wrap(b + ks[(i + 2) % 3]) + (i + 1))
     return a, b
 
 
 def _iota_2x32(shape: Sequence[int], device) -> Tuple[torch.Tensor, torch.Tensor]:
     """The flat index of each element of ``shape`` as a 64-bit number:
-    (high words, low words); JAX's ``iota_2x32_shape``."""
+    (high words, low words) as int32; JAX's ``iota_2x32_shape``."""
     idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device).reshape(tuple(shape))
-    return idx >> 32, idx & _MASK
+    return (idx >> 32).to(torch.int32), idx.to(torch.int32)
 
 
 def _bits_pair(key: Key, shape: Sequence[int], device) -> Tuple[torch.Tensor, torch.Tensor]:
     hi, lo = _iota_2x32(shape, device)
-    return threefry2x32(key[0], key[1], hi, lo)
+    return threefry2x32(_s32(key[0]), _s32(key[1]), hi, lo)
 
 
 def random_bits(key: Key, shape: Sequence[int], device: DeviceLike = "cpu") -> torch.Tensor:
-    """``jax.random.bits(key, shape, uint32)``: uint32 values in an int64
-    tensor."""
+    """``jax.random.bits(key, shape, uint32)``: the uint32 values' bits in
+    an int32 tensor."""
     bits1, bits2 = _bits_pair(key, shape, device)
     return bits1 ^ bits2
 
 
 def fold_in(key: Key, data: int) -> Key:
     """``jax.random.fold_in(key, data)`` for a uint32 ``data``."""
-    return threefry2x32(key[0], key[1], 0, int(data) & _MASK)
+    a, b = threefry2x32(_s32(key[0]), _s32(key[1]), 0, _s32(int(data)))
+    return a & _MASK, b & _MASK
 
 
 def split(key: Key, num: int = 2) -> list:
     """``jax.random.split(key, num)``: the fold-like split of the
     partitionable mode, the hash of the new keys' indices."""
     a, b = _bits_pair(key, (num,), "cpu")
-    return [(int(x), int(y)) for x, y in zip(a.tolist(), b.tolist())]
+    return [(x & _MASK, y & _MASK) for x, y in zip(a.tolist(), b.tolist())]
 
 
 def _float_from_bits(bits: torch.Tensor) -> torch.Tensor:
     """Uniform float32 in [0, 1) from the 23 high bits of each uint32."""
-    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return (((bits >> 9) & 0x7FFFFF) | 0x3F800000).view(torch.float32) - 1.0
 
 
 def _f32(v: float) -> float:
@@ -128,7 +139,7 @@ def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
     when the first rounding lands on a float32 half-way point."""
     b = b.double() if isinstance(b, torch.Tensor) else b
     c = c.double() if isinstance(c, torch.Tensor) else c
-    return (a.double() * b + c).float()
+    return a.double().mul_(b).add_(c).float()
 
 
 def _uniform_from_bits(bits: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
@@ -221,9 +232,10 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 ``erf_inv`` (``lax.erf_inv``) as its CPU code computes
     it."""
     w = -_log1p(x * -x)
-    lt = w < 5.0
-    p = torch.where(lt, _horner(w - 2.5, _ERFINV_W_LT_5),
-                    _horner(_sqrt(w) - 3.0, _ERFINV_W_GE_5))
+    p = _horner(w - 2.5, _ERFINV_W_LT_5)
+    tail = w >= 5.0  # |x| > 0.9966: never within truncated_normal's (-2, 2)
+    if bool(tail.any()):
+        p = torch.where(tail, _horner(_sqrt(w) - 3.0, _ERFINV_W_GE_5), p)
     p = torch.where(x.abs() == 1.0, torch.full_like(p, float("inf")), p)
     return x * p
 
@@ -293,12 +305,14 @@ def lecun_normal(keys: Sequence[Key], shapes: Sequence[Sequence[int]],
 def _lecun_normal_batch(keys, shapes, device) -> List[torch.Tensor]:
     sizes = [math.prod(shape) for shape in shapes]
     counts = torch.tensor(sizes, device=device)
-    key = torch.tensor(keys, dtype=torch.int64, device=device).reshape(-1, 2)
+    key = torch.tensor([[_s32(k) for k in pair] for pair in keys], dtype=torch.int32,
+                       device=device)
     starts = torch.cumsum(counts, 0) - counts
     # each array's own flat index: its counter under its own key
     idx = torch.arange(sum(sizes), device=device) - torch.repeat_interleave(starts, counts)
     bits1, bits2 = threefry2x32(torch.repeat_interleave(key[:, 0], counts),
-                                torch.repeat_interleave(key[:, 1], counts), idx >> 32, idx & _MASK)
+                                torch.repeat_interleave(key[:, 1], counts),
+                                (idx >> 32).to(torch.int32), idx.to(torch.int32))
     std = [np.sqrt(np.float32(1.0 / math.prod(shape[:-1]))) / np.float32(0.87962566103423978)
            for shape in shapes]
     std = torch.repeat_interleave(torch.tensor(np.array(std, np.float32), device=device), counts)
