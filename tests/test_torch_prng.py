@@ -122,11 +122,11 @@ def test_float32_functions_equal_xla(fn):
     np.testing.assert_array_equal(out, np.asarray(jax.jit(ref)(x)))
 
 
-@pytest.mark.parametrize("batch", [1 << 20, 100])
-def test_lecun_normal_equals_flax(batch, monkeypatch):
-    """Several kernels drawn together, each under its own key, in one batch
-    or (``_BATCH`` lowered) in several."""
-    monkeypatch.setitem(prng._BATCH, "cpu", batch)
+@pytest.mark.parametrize("chunk", [1 << 15, 100])
+def test_lecun_normal_equals_flax(chunk, monkeypatch):
+    """Several kernels drawn as one run of elements, each under its own key,
+    in one chunk or (``_CHUNK`` lowered) in chunks that cut kernels."""
+    monkeypatch.setitem(prng._CHUNK, "cpu", chunk)
     shapes = [(3, 3, 1, 8), (1, 1, 16, 32), (64, 10), (3, 3, 4, 4)]
     keys = [jax.random.PRNGKey(s) for s in (11, 12, -3, 2**31 - 1)]
     out = prng.lecun_normal([prng.prng_key(s) for s in (11, 12, -3, 2**31 - 1)], shapes)

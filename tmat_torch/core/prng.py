@@ -52,10 +52,13 @@ _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 FLAX_RNG_SEPARATOR = b""
 
 Key = Tuple[int, int]
-# elements that lecun_normal draws together: on the CPU a batch whose
-# temporaries stay in the caches (1 << 22 took twice as long), on the
-# card one large enough that the launches do not dominate
-_BATCH = {"cpu": 1 << 20, "cuda": 1 << 24}
+# elements computed at a time: on the CPU no more than PyTorch's grain size
+# (32768), so that each of the few hundred elementwise steps runs on the
+# calling thread (spread over the intra-op threads, every step waits for
+# all of them, which a busy host turns into seconds: 12 s against 0.1 s
+# for five sets of well-search draws beside twelve busy processes); on the
+# card enough that the launches do not dominate
+_CHUNK = {"cpu": 1 << 15, "cuda": 1 << 24}
 
 
 def prng_key(seed: int) -> Key:
@@ -90,23 +93,31 @@ def threefry2x32(k1, k2, x0, x1):
     return a, b
 
 
-def _iota_2x32(shape: Sequence[int], device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The flat index of each element of ``shape`` as a 64-bit number:
-    (high words, low words) as int32; JAX's ``iota_2x32_shape``."""
-    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device).reshape(tuple(shape))
-    return (idx >> 32).to(torch.int32), idx.to(torch.int32)
+def _chunked(part, n: int, device) -> torch.Tensor:
+    """``part(start, stop)`` over consecutive ranges of the flat indices
+    ``[0, n)``, ``_CHUNK`` at a time, joined."""
+    step = _CHUNK[torch.device(device).type]
+    return torch.cat([part(i, min(i + step, n)) for i in range(0, max(n, 1), step)])
 
 
-def _bits_pair(key: Key, shape: Sequence[int], device) -> Tuple[torch.Tensor, torch.Tensor]:
-    hi, lo = _iota_2x32(shape, device)
-    return threefry2x32(_s32(key[0]), _s32(key[1]), hi, lo)
+def _hash(k1, k2, idx: torch.Tensor) -> torch.Tensor:
+    """``bits1 ^ bits2`` of the hash of the 64-bit counters ``idx`` (int64,
+    split into high and low words as JAX's ``iota_2x32_shape``)."""
+    a, b = threefry2x32(k1, k2, (idx >> 32).to(torch.int32), idx.to(torch.int32))
+    return a ^ b
+
+
+def _key_bits(key: Key, device):
+    """``part(start, stop)``: the bits of flat indices ``[start, stop)``
+    under ``key``."""
+    k1, k2 = _s32(key[0]), _s32(key[1])
+    return lambda i, j: _hash(k1, k2, torch.arange(i, j, dtype=torch.int64, device=device))
 
 
 def random_bits(key: Key, shape: Sequence[int], device: DeviceLike = "cpu") -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)``: the uint32 values' bits in
     an int32 tensor."""
-    bits1, bits2 = _bits_pair(key, shape, device)
-    return bits1 ^ bits2
+    return _chunked(_key_bits(key, device), math.prod(shape), device).reshape(tuple(shape))
 
 
 def fold_in(key: Key, data: int) -> Key:
@@ -118,8 +129,8 @@ def fold_in(key: Key, data: int) -> Key:
 def split(key: Key, num: int = 2) -> list:
     """``jax.random.split(key, num)``: the fold-like split of the
     partitionable mode, the hash of the new keys' indices."""
-    a, b = _bits_pair(key, (num,), "cpu")
-    return [(x & _MASK, y & _MASK) for x, y in zip(a.tolist(), b.tolist())]
+    k1, k2 = _s32(key[0]), _s32(key[1])
+    return [tuple(v & _MASK for v in threefry2x32(k1, k2, 0, i)) for i in range(num)]
 
 
 def _float_from_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -150,7 +161,9 @@ def _uniform_from_bits(bits: torch.Tensor, minval: float, maxval: float) -> torc
 def uniform(key: Key, shape: Sequence[int], minval: float = 0.0, maxval: float = 1.0,
             device: DeviceLike = "cpu") -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
-    return _uniform_from_bits(random_bits(key, shape, device), minval, maxval)
+    bits = _key_bits(key, device)
+    return _chunked(lambda i, j: _uniform_from_bits(bits(i, j), minval, maxval),
+                    math.prod(shape), device).reshape(tuple(shape))
 
 
 # Cephes' logf, as XLA's CPU ``log`` evaluates it: its polynomial on
@@ -248,23 +261,23 @@ def _erf(x: torch.Tensor) -> torch.Tensor:
     return (x * _horner(x2, _ERF_NUM)) / _horner(x2, _ERF_DEN)
 
 
-def _truncated_from_bits(bits: torch.Tensor, lower: float, upper: float) -> torch.Tensor:
+def _truncated(lower: float, upper: float):
+    """``f(bits)``: ``jax.random.truncated_normal``'s values from the bits,
+    ``sqrt(2) * erf_inv(u)`` for ``u`` uniform between the bounds' ``erf``,
+    clipped to the open interval between the bounds."""
     sqrt2 = _f32(math.sqrt(2))
-    bounds = torch.tensor([lower, upper], dtype=torch.float32)
     # XLA turns the division by a constant into a product with its reciprocal
-    a, b = _erf(bounds * _f32(1.0 / sqrt2)).tolist()
-    out = erf_inv(_uniform_from_bits(bits, a, b)) * sqrt2
-    lo = np.nextafter(np.float32(lower), np.float32(np.inf))
-    hi = np.nextafter(np.float32(upper), np.float32(-np.inf))
-    return out.clamp_(float(lo), float(hi))
+    a, b = _erf(torch.tensor([lower, upper], dtype=torch.float32) * _f32(1.0 / sqrt2)).tolist()
+    lo = float(np.nextafter(np.float32(lower), np.float32(np.inf)))
+    hi = float(np.nextafter(np.float32(upper), np.float32(-np.inf)))
+    return lambda bits: (erf_inv(_uniform_from_bits(bits, a, b)) * sqrt2).clamp_(lo, hi)
 
 
 def truncated_normal(key: Key, lower: float, upper: float, shape: Sequence[int],
                      device: DeviceLike = "cpu") -> torch.Tensor:
-    """``jax.random.truncated_normal(key, lower, upper, shape, float32)``:
-    ``sqrt(2) * erf_inv(u)`` for ``u`` uniform between the bounds' ``erf``,
-    clipped to the open interval between the bounds."""
-    return _truncated_from_bits(random_bits(key, shape, device), lower, upper)
+    """``jax.random.truncated_normal(key, lower, upper, shape, float32)``."""
+    bits, values = _key_bits(key, device), _truncated(lower, upper)
+    return _chunked(lambda i, j: values(bits(i, j)), math.prod(shape), device).reshape(tuple(shape))
 
 
 def flax_param_key(root: Key, path: Sequence[str], counter: int) -> Key:
@@ -285,36 +298,30 @@ def lecun_normal(keys: Sequence[Key], shapes: Sequence[Sequence[int]],
                  device: DeviceLike = "cpu") -> List[torch.Tensor]:
     """Flax's default kernel init, ``lecun_normal()(keys[i], shapes[i],
     float32)`` for every i: ``truncated_normal(-2, 2) * sqrt(1 / fan_in) /
-    0.8796...``, fan-in = every axis but the last. The arrays are drawn
-    together, up to ``_BATCH`` elements to a hash, so that a model's
-    hundreds of kernels take a few hundred launches, not tens of
-    thousands."""
-    batch = _BATCH[torch.device(device).type]
-    out: List[torch.Tensor] = []
-    i = 0
-    while i < len(shapes):
-        j, size = i + 1, math.prod(shapes[i])
-        while j < len(shapes) and size + math.prod(shapes[j]) <= batch:
-            size += math.prod(shapes[j])
-            j += 1
-        out += _lecun_normal_batch(keys[i:j], shapes[i:j], device)
-        i = j
-    return out
-
-
-def _lecun_normal_batch(keys, shapes, device) -> List[torch.Tensor]:
+    0.8796...``, fan-in = every axis but the last. The arrays are drawn as
+    one run of elements, each under its own array's key and counter, so that
+    a model's hundreds of kernels take a few hundred launches on the card,
+    not tens of thousands."""
     sizes = [math.prod(shape) for shape in shapes]
-    counts = torch.tensor(sizes, device=device)
-    key = torch.tensor([[_s32(k) for k in pair] for pair in keys], dtype=torch.int32,
-                       device=device)
-    starts = torch.cumsum(counts, 0) - counts
-    # each array's own flat index: its counter under its own key
-    idx = torch.arange(sum(sizes), device=device) - torch.repeat_interleave(starts, counts)
-    bits1, bits2 = threefry2x32(torch.repeat_interleave(key[:, 0], counts),
-                                torch.repeat_interleave(key[:, 1], counts),
-                                (idx >> 32).to(torch.int32), idx.to(torch.int32))
-    std = [np.sqrt(np.float32(1.0 / math.prod(shape[:-1]))) / np.float32(0.87962566103423978)
-           for shape in shapes]
-    std = torch.repeat_interleave(torch.tensor(np.array(std, np.float32), device=device), counts)
-    values = _truncated_from_bits(bits1 ^ bits2, -2.0, 2.0) * std
-    return [v.reshape(tuple(shape)) for v, shape in zip(torch.split(values, sizes), shapes)]
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    k1 = torch.tensor([_s32(k[0]) for k in keys], dtype=torch.int32, device=device)
+    k2 = torch.tensor([_s32(k[1]) for k in keys], dtype=torch.int32, device=device)
+    starts = torch.tensor(offsets[:-1], device=device)
+    std = torch.tensor(np.array([np.sqrt(np.float32(1.0 / math.prod(shape[:-1])))
+                                 / np.float32(0.87962566103423978) for shape in shapes],
+                                np.float32), device=device)
+    values = _truncated(-2.0, 2.0)
+
+    def part(i: int, j: int) -> torch.Tensor:
+        first, last = np.searchsorted(offsets, i, "right") - 1, np.searchsorted(offsets, j, "left")
+        lens = np.minimum(offsets[first + 1:last + 1], j) - np.maximum(offsets[first:last], i)
+        lens = torch.tensor(lens, device=device)
+
+        def each(t):
+            return torch.repeat_interleave(t[first:last], lens)
+        # each array's own flat index: its counter under its own key
+        idx = torch.arange(i, j, dtype=torch.int64, device=device) - each(starts)
+        return values(_hash(each(k1), each(k2), idx)) * each(std)
+
+    flat = _chunked(part, int(offsets[-1]), device)
+    return [v.reshape(tuple(shape)) for v, shape in zip(torch.split(flat, sizes), shapes)]
