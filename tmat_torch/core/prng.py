@@ -55,9 +55,10 @@ Key = Tuple[int, int]
 # elements computed at a time: on the CPU no more than PyTorch's grain size
 # (32768), so that each of the few hundred elementwise steps runs on the
 # calling thread (spread over the intra-op threads, every step waits for
-# all of them, which a busy host turns into seconds: 12 s against 0.1 s
-# for five sets of well-search draws beside twelve busy processes); on the
-# card enough that the launches do not dominate
+# all of them, which a busy host turns into seconds: on an 8-core host
+# beside twelve busy processes, five sets of well-search draws took 12 s
+# that way and 0.06 s in chunks); on the card enough that the launches do
+# not dominate
 _CHUNK = {"cpu": 1 << 15, "cuda": 1 << 24}
 
 
