@@ -105,10 +105,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
    segmentor's UNet kernels from seed 0 (drawn on the card) against
    digests that the CPU tests pin to the JAX package, the card's bits
    against the CPU's (draws, UNet and ResNet50 inits), and the ResNet50
-   init on the card timed three times.
+   init on the card timed three times;
+20. plate_parts (run right after phase 5, on its wells): the plate's
+   building blocks of ``parallel/plate.py``. ``plate_zproj`` of all five
+   methods, each equal to ``plate_zproj_masked`` at full depth, its ``fs``
+   and ``proj_focus_stacking_batch`` (one focus launch each) equal to the
+   focus kernel's plain version; ``plate_threshold``'s well means equal to
+   ``plate_stage1``'s areas; ``plate_segment`` of the resized wells equal to
+   ``plate_stage1``'s predictions, 3 down-block launches a forward, and
+   against the plain path at mask IoU >= 0.99; ``edt``,
+   ``median_filter_batch`` and ``packbits_device`` against their batched
+   or inverse forms; each block timed (CUDA events) and the three in a row
+   in wells/sec beside phase 5's.
 
 Phase 4 also holds the bf16 kernel path's mask against an f32 forward of
-the plain path. The launch counts of phases 5, 8, 9, 10, 13 and 15 go into
+the plain path. The launch counts of phases 5, 8, 9, 10, 13, 15 and 20 go into
 the kernels line, and so do the trained segmentor's of phase 16 and the
 quantized segmentor's of phase 17 (whose int8 launches are the int8
 conv's); phases 11 and 12, the inv_depth runs of 15 and the training steps
@@ -383,6 +394,98 @@ def phase_plate(seg, n_wells: int, rng, device):
          unet_forwards=forwards[0], max_memory_allocated=torch.cuda.max_memory_allocated(),
          stage_totals_s=timers[-1].totals, results=r1)
     return {"launches": launches, "plate": plate, "ids": ids, "results": r1, "wells_per_sec": [wps1, wps2]}
+
+
+def phase_plate_parts(seg, plate_run, device, smi: str):
+    """The plate's building blocks (``parallel/plate.py``) on phase plate's
+    wells, and ``plate_stage1`` beside them. Returns the launches of the run
+    that drives them."""
+    from tmat_torch.ops import down_block as db, focus_stack as fs
+    from tmat_torch.ops.distance import edt, edt_batch
+    from tmat_torch.ops.rescale import rescale_intensity
+    from tmat_torch.ops.resize import resize
+    from tmat_torch.ops.zproj import PROJ_METHODS, proj_focus_stacking_batch
+    from tmat_torch.parallel import plate as P
+    from tmat_torch.topo.transforms import median_filter_batch, median_filter_disk2_batch
+
+    plate, n_wells, sd_coef = plate_run["plate"], len(plate_run["plate"]), 0.0  # run_plate's sd_coef
+    stacks = torch.from_numpy(plate).to(device)
+    target = tuple(int(v) for v in np.round(np.multiply(plate.shape[-2:], seg.ds_ratio)))
+    forwards = [0]
+
+    def counted(batch):
+        forwards[0] += 1
+        return seg._pred_fn(batch)
+
+    def segment_input(proj):
+        return rescale_intensity(resize(proj.float(), target, "lanczos"), dims=(-2, -1))
+
+    torch.cuda.synchronize()
+    db.launches = fs.launches = 0  # the building blocks' run starts here
+    projs = {m: P.plate_zproj(stacks, m, device) for m in PROJ_METHODS}
+    fs_batch = proj_focus_stacking_batch(stacks)
+    thresh = P.plate_threshold(projs["max"], sd_coef, device=device)
+    preds = P.plate_segment(segment_input(projs["max"]), counted, seg.patch_size, 2, seg.tta, device)
+    area, stage1_preds, f_pk, _ = P.plate_stage1(stacks, counted, seg.patch_size, 2, target, sd_coef,
+                                                 tta=seg.tta)
+    torch.cuda.synchronize()
+    launches = {"down_block": db.launches, "focus_stack": fs.launches}  # ... and ends here
+    if launches != {"down_block": 3 * forwards[0], "focus_stack": 2} or forwards[0] != 2 * n_wells:
+        raise AssertionError(f"{launches} kernel launches for {forwards[0]} UNet forwards of {n_wells} wells")
+
+    # depth 8: the whole-stack mean's 1/8 is exact, so it equals the masked mean bit for bit
+    for m, proj in projs.items():
+        if not torch.equal(proj.float(), P.plate_zproj_masked(stacks, None, m)):
+            raise AssertionError(f"plate_zproj({m!r}) differs from plate_zproj_masked at full depth")
+    plain = fs.focus_stack_plain(stacks)
+    if not (projs["fs"].dtype == torch.uint8 and torch.equal(projs["fs"], plain)
+            and torch.equal(fs_batch, plain)):
+        raise AssertionError("plate_zproj('fs') or proj_focus_stacking_batch differs from the plain version")
+    well_means = thresh.float().mean(dim=(-2, -1))
+    if not (thresh.dtype == torch.uint8 and torch.equal(well_means, area)):
+        raise AssertionError(f"plate_threshold's well means {well_means.tolist()} differ from stage 1's "
+                             f"areas {area.tolist()}")
+    if not torch.equal(preds, stage1_preds):
+        raise AssertionError("plate_segment differs from plate_stage1's predictions")
+    plain_preds = P.plate_segment(segment_input(projs["max"]), lambda b: seg.model(b, plain_down=True),
+                                  seg.patch_size, 2, seg.tta, device)
+    mk, mp = preds > 0.5, plain_preds > 0.5
+    iou = (mk & mp).sum().item() / max((mk | mp).sum().item(), 1)
+    if not (iou >= 0.99 and mp.sum().item() > 1000):
+        raise AssertionError(f"plate_segment kernel vs plain mask IoU {iou} < 0.99 (or an empty mask)")
+    seg_masks = preds > 0.5
+    w = preds.shape[-1]
+    mask = P.unpackbits(f_pk, w)[0]
+    small_parts = {
+        "edt": torch.equal(edt(mask), edt_batch(mask[None])[0]),
+        "median_filter_batch": torch.equal(median_filter_batch(seg_masks.float()),
+                                           median_filter_disk2_batch(seg_masks.float())),
+        "packbits_device": torch.equal(P.unpackbits_device(P.packbits_device(seg_masks), w), seg_masks),
+    }
+    if not all(small_parts.values()) or not mask.any():
+        raise AssertionError(f"a small part disagrees: {small_parts}")
+
+    # each building block alone (CUDA events), then the three in a row (host clock)
+    small = segment_input(projs["max"])
+    ms = {"plate_zproj_max": cuda_ms(lambda: P.plate_zproj(stacks, "max", device), 10),
+          "plate_zproj_fs": cuda_ms(lambda: P.plate_zproj(stacks, "fs", device), 10),
+          "plate_threshold": cuda_ms(lambda: P.plate_threshold(projs["max"], sd_coef, device=device), 3),
+          "plate_segment": cuda_ms(
+              lambda: P.plate_segment(small, seg._pred_fn, seg.patch_size, 2, seg.tta, device), 2)}
+    rates = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proj = P.plate_zproj(stacks, "max", device)
+        P.plate_threshold(proj, sd_coef, device=device)
+        P.plate_segment(segment_input(proj), seg._pred_fn, seg.patch_size, 2, seg.tta, device)
+        torch.cuda.synchronize()
+        rates.append(n_wells / (time.perf_counter() - t0))
+    emit("plate_parts", wells=n_wells, size=list(plate.shape[1:]), launches=launches,
+         unet_forwards=forwards[0], mask_iou_kernel_vs_plain=iou, max_abs_diff_kernel_vs_plain=(preds - plain_preds).abs().max().item(),
+         area=area.tolist(), small_parts=small_parts, ms=ms, three_in_a_row_wells_per_sec=rates,
+         plate_wells_per_sec=plate_run["wells_per_sec"], nvidia_smi=smi)
+    return launches
 
 
 def focus_work(z_counts, h: int, w: int, itemsize: int) -> dict:
@@ -1950,6 +2053,7 @@ def run_phases(args, tmp: Path, device, kind: str, smi: str) -> int:
     unet = phase_unet(seg, synthetic_plate(1, rng)[0], device)
     plate_run = phase_plate(seg, args.wells, rng, device)
     launches = plate_run["launches"]
+    parts_launches = phase_plate_parts(seg, plate_run, device, smi)
     focus_cases = phase_focus_check(rng, device)
     focus_timings, empty_launch_ms = phase_focus_time(rng, device)
     fs_plate, sharp, rings = focus_plate(args.wells, rng)
@@ -1983,9 +2087,11 @@ def run_phases(args, tmp: Path, device, kind: str, smi: str) -> int:
         "route": "cuda",
         "source": "tmat_torch/csrc/down_block.cu",
         "replaces": "tmat_tpu/ops/pallas_unet.py:245",
-        "launches": (launches + fs_launches["down_block"] + branch_launches + profile_launches
-                     + sum(dist_launches.values()) + train_launches + quant_run["down_block"]),
-        "launches_by_path": {"plate": launches, "plate_fs": fs_launches["down_block"],
+        "launches": (launches + parts_launches["down_block"] + fs_launches["down_block"]
+                     + branch_launches + profile_launches + sum(dist_launches.values())
+                     + train_launches + quant_run["down_block"]),
+        "launches_by_path": {"plate": launches, "plate_parts": parts_launches["down_block"],
+                             "plate_fs": fs_launches["down_block"],
                              "branches": branch_launches, "profile": profile_launches,
                              "distributed_branches_2d": dist_launches["branches_2d"],
                              "distributed_plate": dist_launches["plate"], "train": train_launches,
@@ -2005,8 +2111,9 @@ def run_phases(args, tmp: Path, device, kind: str, smi: str) -> int:
         "route": "cuda",
         "source": "tmat_torch/csrc/focus_stack.cu",
         "replaces": "tmat_tpu/ops/pallas_zproj.py:52",
-        "launches": zproj_launches + fs_launches["focus_stack"],
-        "launches_by_path": {"zproj": zproj_launches, "plate_fs": fs_launches["focus_stack"]},
+        "launches": zproj_launches + fs_launches["focus_stack"] + parts_launches["focus_stack"],
+        "launches_by_path": {"zproj": zproj_launches, "plate_fs": fs_launches["focus_stack"],
+                             "plate_parts": parts_launches["focus_stack"]},
         "max_abs_err": max(c["max_abs_err"] for c in focus_cases),
         "mismatched_pixels": sum(c["mismatched_pixels"] for c in focus_cases),
         # one uint8 (8, 1024, 1024) stack, as the tools and a plate chunk launch it

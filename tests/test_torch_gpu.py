@@ -164,10 +164,8 @@ def test_wrapper_refuses_mixed_devices(cuda):
         db.down_block(x, dict(blk, w1=blk["w1"].cpu()), True)
 
 
-@pytest.mark.gpu
-def test_unet_forward_goes_through_the_kernel(cuda):
-    rng = np.random.RandomState(1)
-    filters = (8, 16, 32)
+def random_folded_unet(rng, filters):
+    """BN-folded UNet weights (``UNetXception``'s input) drawn from ``rng``."""
 
     def arr(*shape, scale=1.0):
         return (rng.randn(*shape) * scale).astype(np.float32)
@@ -182,9 +180,15 @@ def test_unet_forward_goes_through_the_kernel(cuda):
                     "k2": arr(3, 3, f, f, scale=(9 * f) ** -0.5), "b2": arr(f, scale=0.1),
                     "wr": arr(prev, f, scale=prev ** -0.5), "br": arr(f, scale=0.1)})
         prev = f
-    folded = {"entry": {"k": arr(3, 3, 1, filters[0], scale=1 / 3), "b": arr(filters[0], scale=0.1)},
-              "down": down, "up": ups, "head": {"k": arr(3, 3, filters[0], 1, scale=0.1), "b": arr(1)}}
-    net = UNetXception(folded, torch.bfloat16).to(cuda)
+    return {"entry": {"k": arr(3, 3, 1, filters[0], scale=1 / 3), "b": arr(filters[0], scale=0.1)},
+            "down": down, "up": ups, "head": {"k": arr(3, 3, filters[0], 1, scale=0.1), "b": arr(1)}}
+
+
+@pytest.mark.gpu
+def test_unet_forward_goes_through_the_kernel(cuda):
+    rng = np.random.RandomState(1)
+    filters = (8, 16, 32)
+    net = UNetXception(random_folded_unet(rng, filters), torch.bfloat16).to(cuda)
     batch = torch.tensor(rng.rand(4, 64, 64, 1).astype(np.float32), device=cuda)
     before = db.launches
     out = net(batch)
@@ -314,6 +318,44 @@ def test_focus_kernel_takes_unaligned_tensors(cuda, dtype, shape):
     view.copy_(stacks)
     assert view.data_ptr() % 16 != 0 and view.is_contiguous()
     assert torch.equal(fs.focus_stack(view).cpu(), fs.focus_stack(stacks).cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["uint8", "uint16", "float32"])
+def test_plate_zproj_fs_goes_through_the_focus_kernel(cuda, dtype):
+    """``plate_zproj(..., "fs")`` and ``proj_focus_stacking_batch``: one
+    launch each, in the stacks' dtype; uint8 equal to the plain version,
+    the others at most at near-ties."""
+    from tmat_torch.parallel.plate import plate_zproj
+
+    stacks = focus_input(dtype, (3, 6, 40, 52), {"uint8": 255, "uint16": 4095, "float32": 255}[dtype])
+    before = fs.launches
+    out = plate_zproj(stacks, "fs")  # a CPU tensor: the entry point moves it to the card
+    batch = zproj.proj_focus_stacking_batch(stacks.to(cuda))
+    torch.cuda.synchronize()
+    assert fs.launches == before + 2
+    assert out.device.type == "cuda" and out.dtype == stacks.dtype and torch.equal(out, batch)
+    n_diff, far, _ = fs.compare_with_plain(out, stacks.to(cuda))
+    assert far == 0 and (n_diff == 0 if dtype == "uint8" else n_diff <= 1e-3 * out.numel())
+
+
+@pytest.mark.gpu
+def test_plate_segment_goes_through_the_kernel(cuda):
+    """``plate_segment`` of two wells with a bf16 UNet (filters 8-16-32,
+    patch 64): two down-block launches per well, and within 0.05 of the
+    same wells on the plain path."""
+    from tmat_torch.parallel.plate import plate_segment
+
+    rng = np.random.RandomState(2)
+    net = UNetXception(random_folded_unet(rng, (8, 16, 32)), torch.bfloat16).to(cuda)
+    imgs = torch.tensor(rng.rand(2, 96, 80).astype(np.float32))
+    before = db.launches
+    out = plate_segment(imgs, net, 64, 2)
+    torch.cuda.synchronize()
+    assert db.launches == before + 2 * 2
+    ref = plate_segment(imgs, lambda b: net(b, plain_down=True), 64, 2)
+    assert out.shape == (2, 96, 80) and out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() < 0.05
 
 
 @pytest.mark.gpu

@@ -23,8 +23,9 @@ MODULES = sorted(
 )
 FORBIDDEN = ("jax", "flax", "triton", "msgpack", "networkx", "PIL", "cv2", "tmat_tpu", "h5py",
              "matplotlib")
-# imported only inside the functions that need them (image files, .h5 weights, panels)
-LAZY = ("PIL", "h5py", "matplotlib")
+# imported only inside the functions that need them (image files, .h5 weights, panels,
+# the skeleton graph)
+LAZY = ("PIL", "h5py", "matplotlib", "networkx")
 
 
 def test_modules_import_without_forbidden_packages():
@@ -79,7 +80,7 @@ def test_no_import_of_the_jax_package():
                 names = [node.module]
             for name in names:
                 top = name.split(".")[0]
-                # PIL, h5py and matplotlib only inside functions, never at module level
+                # PIL, h5py, matplotlib and networkx only inside functions, never at module level
                 allowed = top in LAZY and node.col_offset > 0
                 # Tk only inside the GUI's functions
                 assert top != "tkinter" or (path.name == "gui.py" and node.col_offset > 0), path
@@ -98,7 +99,8 @@ def no_cuda():
                                    "inv_depth_ensemble", "inv_depth_prep", "resnet", "cli", "gui",
                                    "train_segmentation", "train_invasion", "hp_search",
                                    "eval_segmentation", "unet_trainable", "resnet_trainable",
-                                   "invasion_data", "quant_calibrate", "quant_pred_fn"])
+                                   "invasion_data", "quant_calibrate", "quant_pred_fn", "plate_zproj",
+                                   "plate_threshold", "plate_segment", "default_infer_dtype"])
 def test_entry_points_refuse_without_cuda(no_cuda, entry, tmp_path):
     from tmat_torch.device import resolve_device
     from tmat_torch.models.unet import UNetXceptionPatchSegmentor
@@ -107,7 +109,9 @@ def test_entry_points_refuse_without_cuda(no_cuda, entry, tmp_path):
     from tmat_torch.models import (data, eval_segmentation, hp_search, quant, train_invasion,
                                    train_segmentation)
     from tmat_torch.models.resnet import build_resnet50_tl, build_trainable_resnet50_tl
+    from tmat_torch.models import default_infer_dtype
     from tmat_torch.models.unet import build_unet_xception
+    from tmat_torch.parallel import plate
     from tmat_torch.tools import (compute_branches, compute_cell_area, compute_inv_depth, compute_zproj,
                                   plate_pipeline)
 
@@ -143,6 +147,10 @@ def test_entry_points_refuse_without_cuda(no_cuda, entry, tmp_path):
                                                             np.random.RandomState(0)),
         "quant_calibrate": lambda: quant.calibrate({}, np.zeros((1, 8, 8, 1), np.float32)),
         "quant_pred_fn": lambda: quant.make_quant_pred_fn({}, (8, 16), scales={}),
+        "plate_zproj": lambda: plate.plate_zproj(np.zeros((1, 2, 8, 8), np.uint8), "fs"),
+        "plate_threshold": lambda: plate.plate_threshold(np.zeros((1, 8, 8), np.float32), 0.0),
+        "plate_segment": lambda: plate.plate_segment(np.zeros((1, 8, 8), np.float32), lambda b: b, 8),
+        "default_infer_dtype": lambda: default_infer_dtype(),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

@@ -15,7 +15,8 @@ import torch
 from tmat_tpu.models.resnet import build_resnet50_tl as jax_resnet
 from tmat_tpu.models.unet import build_unet_xception as jax_unet
 from tmat_torch.models.layers import flatten_tree, flax_variables
-from tmat_torch.models.resnet import build_trainable_resnet50_tl
+from tmat_torch.models.params_io import from_flax_resnet_variables
+from tmat_torch.models.resnet import build_resnet50_tl, build_trainable_resnet50_tl
 from tmat_torch.models.unet import build_unet_xception
 
 
@@ -45,6 +46,39 @@ def test_unet_init_equals_flax(seed):
     assert len(kernels) == 2 + 5 * (len(filters) - 1) + 3 * len(filters)  # entry, down, up, head
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
+def test_unet_dtype_and_zeros_init(dtype):
+    """``dtype`` is the compute dtype: every leaf is Flax's float32 init
+    cast to it, bit for bit, and the forward in it is within the dtype's
+    reach of the JAX model's float32 forward (float64 1e-6, bfloat16 0.05).
+    ``init="zeros"`` gives JAX's all-zero tree."""
+    import jax.numpy as jnp
+
+    model, ref = jax_unet(1, (32, 32), filter_counts=FILTERS, seed=2)
+    port = build_unet_xception(1, (32, 32), filter_counts=FILTERS, dtype=dtype, seed=2, device="cpu")
+    assert all(t.dtype == dtype for t in port.state_dict().values())
+    cast = {c: {k: torch.tensor(np.asarray(v)).to(dtype).float().numpy()
+                for k, v in flatten_tree(dict(ref[c])).items()} for c in ref}
+    got = flax_variables(port)  # float32 copies
+    for c in cast:
+        for name, want in cast[c].items():
+            np.testing.assert_array_equal(flatten_tree(got[c])[name], want, err_msg=name)
+    x = np.random.RandomState(0).rand(2, 32, 32, 1).astype(np.float32)
+    with torch.no_grad():
+        out = port.eval()(torch.tensor(x)).float().numpy()
+    want = np.asarray(model.apply(ref, jnp.asarray(x), train=False))
+    np.testing.assert_allclose(out, want, atol=1e-6 if dtype == torch.float64 else 0.05, rtol=0)
+    _, zeros = jax_unet(1, (32, 32), filter_counts=FILTERS, init="zeros")  # its keys sorted
+    got = flax_variables(build_unet_xception(1, (32, 32), filter_counts=FILTERS, init="zeros", device="cpu"))
+    for c in ("params", "batch_stats"):
+        want = flatten_tree(dict(zeros[c]))
+        assert set(flatten_tree(got[c])) == set(want)
+        for name, a in flatten_tree(got[c]).items():
+            np.testing.assert_array_equal(a, np.asarray(want[name]), err_msg=name)
+    with pytest.raises(ValueError, match="init"):
+        build_unet_xception(1, (32, 32), filter_counts=FILTERS, init="ones", device="cpu")
+
+
 def test_unet_seeds_differ():
     a = flax_variables(build_unet_xception(1, (32, 32), filter_counts=FILTERS, seed=1, device="cpu"))
     b = flax_variables(build_unet_xception(1, (32, 32), filter_counts=FILTERS, seed=2, device="cpu"))
@@ -53,12 +87,19 @@ def test_unet_seeds_differ():
 
 @pytest.mark.parametrize("seed", [0, 1234])
 def test_resnet_init_equals_flax(seed):
-    """The whole ResNet50 (its ~23.5M parameters) and the zero head."""
+    """The whole ResNet50 (its ~23.5M parameters) and the zero head; the
+    inference classifier of ``build_resnet50_tl(seed=seed)`` holds the same
+    init with its BatchNorm folded, bit for bit."""
     _, ref = jax_resnet(1, (32, 32, 3), seed=seed)
     port = build_trainable_resnet50_tl(1, (32, 32, 3), seed=seed, device="cpu")
     assert_same_variables(flax_variables(port), ref)
     assert not port.head.kernel.any() and not port.head.bias.any()
     assert float(port.base_model.conv1_conv.kernel.detach().std()) > 0
+    folded = from_flax_resnet_variables({c: {k: dict(v) for k, v in ref[c].items()} for c in ref})
+    state = build_resnet50_tl(1, (32, 32, 3), seed=seed, device="cpu").state_dict()
+    assert set(state) == set(folded)
+    for name, t in state.items():
+        np.testing.assert_array_equal(t.numpy(), folded[name], err_msg=name)
 
 
 def test_truncated_resnet_init_equals_flax():

@@ -9,10 +9,11 @@ import torch
 from tmat_tpu.ops import distance as jdist, morphology as jmorph, rescale as jrescale
 from tmat_tpu.ops import resize as jresize, threshold as jthresh, zproj as jzproj
 from tmat_tpu.parallel.plate import packbits_device, unpackbits_device
-from tmat_tpu.topo.transforms import _median_filter_disk2_batch
-from tmat_torch.ops import distance, morphology, rescale, resize, threshold, zproj
+from tmat_tpu.topo.transforms import _median_filter_disk2_batch, median_filter_batch as jax_median_batch
+from tmat_torch.ops import distance, focus_stack, morphology, rescale, resize, threshold, zproj
+from tmat_torch.parallel import plate
 from tmat_torch.parallel.plate import packbits, unpackbits
-from tmat_torch.topo.transforms import median_filter_disk2_batch
+from tmat_torch.topo.transforms import median_filter_batch, median_filter_disk2_batch
 
 
 @pytest.mark.parametrize("method", ["lanczos", "linear", "nearest"])
@@ -34,6 +35,32 @@ def test_resize(method, src, dst):
     assert np.mean(outi == refi) > 0.999
 
 
+@pytest.mark.parametrize("antialias", [True, False])
+@pytest.mark.parametrize("method", ["lanczos", "lanczos3", "lanczos4", "cubic", "linear", "bilinear",
+                                    "nearest"])
+@pytest.mark.parametrize("src,dst", [((37, 53), (20, 29)), ((64, 64), (17, 40)), ((20, 29), (37, 53))],
+                         ids=["down", "down_4x", "up"])
+def test_resize_antialias(method, antialias, src, dst):
+    """Every method with and without antialiasing, downsampling and
+    upsampling: within 1e-5 of ``jax.image.resize``. Without antialiasing a
+    downsampling kernel keeps its width, so the two settings differ there."""
+    x = np.random.RandomState(sum(dst)).rand(2, *src).astype(np.float32)
+    ref = np.asarray(jresize.resize(jnp.asarray(x), dst, method, antialias))
+    out = resize.resize(torch.tensor(x), dst, method, antialias).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
+    other = resize.resize(torch.tensor(x), dst, method, not antialias).numpy()
+    assert np.array_equal(other, out) == (method == "nearest" or dst[0] > src[0])
+
+
+def test_resize_weight_cache_keeps_antialiased_weights():
+    """The flag is part of the cache's key: a call without antialiasing
+    leaves the default's weights as they were."""
+    before = resize.weight_matrix(1024, 640, "lanczos").copy()
+    sharp = resize.weight_matrix(1024, 640, "lanczos", False)
+    assert not np.array_equal(sharp, before)
+    np.testing.assert_array_equal(resize.weight_matrix(1024, 640, "lanczos"), before)
+
+
 @pytest.mark.parametrize("case", ["random", "constant", "negative"])
 def test_rescale_intensity(case):
     rng = np.random.RandomState(0)
@@ -44,6 +71,34 @@ def test_rescale_intensity(case):
     np.testing.assert_allclose(out, ref, atol=1e-7, rtol=0)
     batch = rescale.rescale_intensity(torch.tensor(np.stack([x, 2 * x])), dims=(-2, -1)).numpy()
     np.testing.assert_allclose(batch[0], ref, atol=1e-7, rtol=0)
+
+
+@pytest.mark.parametrize("in_range", [(0.0, 1.0), (2.0, 30.0), (-3, 50), (5.0, 5.0)])
+def test_rescale_intensity_in_range(in_range):
+    """Clip to ``in_range``, then map onto ``out_range``; an empty range maps
+    to out_min. Within 1e-6 of the JAX function."""
+    x = (np.random.RandomState(1).rand(2, 19, 23) * 40 - 5).astype(np.float32)
+    for out_range in ((0, 1), (0, 255), (-1, 1)):
+        ref = np.asarray(jrescale.rescale_intensity(jnp.asarray(x), out_range, in_range))
+        out = rescale.rescale_intensity(torch.tensor(x), out_range, in_range).numpy()
+        np.testing.assert_allclose(out, ref, atol=1e-6 * max(map(abs, out_range)), rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8])
+def test_apply_mask_and_bin_thresh(dtype):
+    """Both exact, in the image's dtype."""
+    rng = np.random.RandomState(3)
+    img = (rng.rand(17, 21) * 200).astype(dtype)
+    mask = (rng.rand(17, 21) > 0.4).astype(np.uint8)
+    ref = np.asarray(jrescale.apply_mask(jnp.asarray(img), jnp.asarray(mask)))
+    out = rescale.apply_mask(torch.tensor(img), torch.tensor(mask)).numpy()
+    assert out.dtype == ref.dtype
+    np.testing.assert_array_equal(out, ref)
+    for img_max, thresh in ((255.0, 0.0), (1.0, 100.0), (7, 50.5)):
+        ref = np.asarray(jrescale.bin_thresh(jnp.asarray(img), img_max, thresh))
+        out = rescale.bin_thresh(torch.tensor(img), img_max, thresh).numpy()
+        assert out.dtype == ref.dtype == img.dtype
+        np.testing.assert_array_equal(out, ref)
 
 
 @pytest.mark.parametrize("method", ["max", "min", "avg", "med", "fs"])
@@ -77,6 +132,34 @@ def test_zproj(method, dtype):
         out = zproj.proj_masked(torch.tensor(padded.astype(np.int32)), z, method).numpy()
         np.testing.assert_array_equal(out, ref)
         np.testing.assert_array_equal(out, out_host.astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "uint16", "float32"])
+def test_proj_focus_stacking_batch(dtype):
+    """A (B, Z, H, W) plate at full depth against the JAX function (XLA's
+    form), in the stacks' dtype: uint8 equal; wider types differ at most at
+    |Laplacian| near-ties (``focus_stack.compare_with_plain``'s rule, with
+    the JAX result in the plain version's place)."""
+    rng = np.random.RandomState(7)
+    top = {"uint8": 255, "uint16": 4095, "float32": 255}[dtype]
+    stacks = (rng.rand(3, 5, 37, 41) * top).astype(dtype)
+    ref = np.asarray(jzproj.proj_focus_stacking_batch(jnp.asarray(stacks)))
+    out = zproj.proj_focus_stacking_batch(torch.from_numpy(stacks))
+    assert out.numpy().dtype == ref.dtype == stacks.dtype
+    x = torch.from_numpy(stacks).float()
+    scores = focus_stack.focus_scores(x)
+
+    def chosen(values):  # the best score among the slices that hold the chosen value
+        return torch.where(x == values[:, None], scores, float("-inf")).amax(dim=1)
+
+    differ = out.numpy() != ref
+    if dtype == "uint8":
+        assert not differ.any()
+    best = scores.amax(1)
+    near = (best - torch.minimum(chosen(out.float()), chosen(torch.tensor(ref).float()))) <= 1e-4 * best
+    assert differ.mean() <= 1e-3 and near.numpy()[differ].all()
+    with pytest.raises(ValueError, match="B, Z, H, W"):
+        zproj.proj_focus_stacking_batch(torch.from_numpy(stacks[0]))
 
 
 def _gmm_images(rng):
@@ -118,25 +201,44 @@ def _blobs(rng, shape=(3, 41, 37)):
     return ndimage.uniform_filter(x, size=(1, 5, 5)) > 0.5
 
 
-@pytest.mark.parametrize("op", ["median", "skeletonize", "packbits", "edt"])
+@pytest.mark.parametrize("op", ["median", "median_batch", "skeletonize", "skeletonize_2d", "packbits",
+                                "packbits_device", "edt", "edt_2d", "dilation", "closing"])
 def test_raster_ops_exact(op):
     rng = np.random.RandomState(4)
     masks = _blobs(rng)
-    if op == "median":
+    if op in ("median", "median_batch"):
         x = (rng.rand(3, 41, 37) > 0.5).astype(np.float32)
         ref = np.asarray(_median_filter_disk2_batch(jnp.asarray(x)))
-        out = median_filter_disk2_batch(torch.tensor(x)).numpy()
+        if op == "median_batch":  # the JAX package's name for the batched median
+            ref = np.asarray(jax_median_batch(x))
+        out = (median_filter_batch if op == "median_batch" else median_filter_disk2_batch)(torch.tensor(x)).numpy()
     elif op == "skeletonize":
         ref = np.stack([np.asarray(jmorph.skeletonize(jnp.asarray(m))) for m in masks])
         out = morphology.skeletonize(torch.tensor(masks)).numpy()
         assert out.any()
-    elif op == "packbits":
+    elif op == "skeletonize_2d":  # one (H, W) mask, as the JAX function takes it
+        ref = np.asarray(jmorph.skeletonize(jnp.asarray(masks[0])))
+        out = morphology.skeletonize(torch.tensor(masks[0])).numpy()
+        assert out.shape == masks[0].shape and out.any()
+    elif op in ("packbits", "packbits_device"):
+        pack, unpack = ((plate.packbits_device, plate.unpackbits_device) if op == "packbits_device"
+                        else (packbits, unpackbits))
         ref = np.asarray(packbits_device(jnp.asarray(masks)))
-        out = packbits(torch.tensor(masks)).numpy()
+        out = pack(torch.tensor(masks)).numpy()
         np.testing.assert_array_equal(out, np.packbits(masks, axis=-1))
-        back = unpackbits(torch.tensor(out), masks.shape[-1]).numpy()
+        back = unpack(torch.tensor(out), masks.shape[-1]).numpy()
         np.testing.assert_array_equal(back, np.asarray(unpackbits_device(jnp.asarray(ref), masks.shape[-1])))
         np.testing.assert_array_equal(back, masks)
+    elif op in ("dilation", "closing"):  # the JAX package's names for the binary ops
+        fp = jmorph.disk(2)
+        ref = np.asarray(getattr(jmorph, op)(jnp.asarray(masks[0]), fp))
+        out = getattr(morphology, op)(torch.tensor(masks[0]), fp).numpy()
+        assert out.any() and not out.all()
+    elif op == "edt_2d":  # one 2-D mask, and one with no background (the 1e9 sentinel)
+        for m in (masks[0], np.ones_like(masks[0])):
+            ref = np.asarray(jdist.edt(jnp.asarray(m), row_chunk=8))
+            out = distance.edt(torch.tensor(m), row_chunk=8).numpy()
+            np.testing.assert_array_equal(out, ref)
     else:
         masks[1] = True  # a mask without background: the 1e9 sentinel path
         ref = np.asarray(jdist.edt_batch(jnp.asarray(masks)))

@@ -77,6 +77,49 @@ def test_saved_variables_round_trip(tmp_path, dtype):
         np.testing.assert_array_equal(out[key], a)
 
 
+def _leaves(tree, prefix=()):
+    """{path: leaf} of a nested dict, the leaves as they are."""
+    out = {}
+    for k, x in tree.items():
+        out.update(_leaves(x, prefix + (k,)) if isinstance(x, dict) else {prefix + (k,): x})
+    return out
+
+
+@pytest.mark.parametrize("leaf", ["float32", "bfloat16"])
+def test_load_params_into_a_template_equals_jax(tmp_path, leaf):
+    """A float16 checkpoint written by the JAX package, loaded into a float32
+    template (numpy leaves, as ``load_variables`` gives them) and into a
+    bfloat16 one (tensor leaves): each leaf in its template leaf's dtype and
+    bit-equal to the JAX package's ``load_params`` into the same template. A
+    key only the file has is dropped; a missing or misplaced one raises."""
+    import jax.numpy as jnp
+    import torch
+
+    v = _rand_variables((8, 16), 32, seed=5)
+    path = tmp_path / "v.msgpack"
+    save_params(path, v, dtype=np.float16)
+    bf16 = leaf == "bfloat16"
+    ref = _flat(load_params(path, jax.tree.map(
+        lambda a: jnp.zeros(a.shape, jnp.bfloat16 if bf16 else jnp.float32), v)))
+    template = jax.tree.map(
+        lambda a: torch.zeros(a.shape, dtype=torch.bfloat16) if bf16 else np.zeros(a.shape, np.float32), v)
+    del template["params"]["Conv_0"]  # a key the file has and the template lacks
+    out = _leaves(tio.load_params(path, template))
+    assert set(out) == {k for k in ref if k[:2] != ("params", "Conv_0")} and len(out) > 40
+    for key, a in out.items():
+        if bf16:
+            assert a.dtype == torch.bfloat16, key
+            np.testing.assert_array_equal(a.view(torch.int16).numpy(), ref[key].view(np.int16), err_msg=str(key))
+        else:
+            assert a.dtype == np.float32, key
+            np.testing.assert_array_equal(a, ref[key], err_msg=str(key))
+    template["params"]["Extra"] = {"kernel": np.zeros(3, np.float32)}
+    with pytest.raises(ValueError, match="Extra"):
+        tio.load_params(path, template)
+    with pytest.raises(ValueError, match="a dict"):
+        tio.load_params(path, {"params": {"Conv_1": {"kernel": {"inner": np.zeros(1)}}}})
+
+
 def test_decoder_matches_msgpack():
     """Every msgpack type the reader takes decodes as the msgpack package does."""
     obj = {

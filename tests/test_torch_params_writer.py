@@ -111,7 +111,7 @@ def test_member_loads_in_both_packages(tmp_path, dtype):
     _, template = jax_resnet(1, (32, 32, 3), base_last_layer="conv2_block3_out", init="zeros")
     model = JaxResNet50TL(1, "conv2_block3_out")
     ref = np.asarray(jax.jit(lambda v, b: model.apply(v, b, train=False))(load_params(path, template), x))
-    member = load_member(build_resnet50_tl(1, (32, 32, 3), "conv2_block3_out", device="cpu"),
+    member = load_member(build_resnet50_tl(1, (32, 32, 3), "conv2_block3_out", init="zeros", device="cpu"),
                          P.from_flax_resnet_variables(P.load_variables(path)))
     out = ensemble_forward([member], torch.tensor(x))[0].numpy()
     np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)

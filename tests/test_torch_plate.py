@@ -10,6 +10,10 @@ depths). Tolerances: area within one pixel, stage-1 predictions within
 1e-4, filtered masks equal, branch counts equal and lengths within 1e-6
 relative.
 
+The plate building blocks (``plate_zproj``, ``plate_threshold``,
+``plate_segment``) are held against the JAX package's on a one-device
+mesh, the last with an identity model and with a UNet of filters 8-16-32.
+
 With ``detect_well`` a second plate, whose wells are bright discs on a
 dark frame, goes through both, with the port's own unit draws (JAX's) and
 with the JAX package's passed in (``unit_draws`` patched); the well masks
@@ -28,6 +32,7 @@ from PIL import Image
 
 from tmat_tpu.models.params_io import save_params
 from tmat_tpu.models.unet import UNetXceptionPatchSegmentor as JaxSegmentor, build_unet_xception
+from tmat_tpu.parallel import plate as jplate
 from tmat_tpu.parallel.mesh import make_mesh
 from tmat_tpu.parallel.plate import plate_stage1 as jax_stage1
 from tmat_tpu.tools import plate_pipeline as jpp
@@ -35,6 +40,8 @@ from tmat_tpu.topo.transforms import filter_branch_seg_mask as jax_filter
 from tmat_torch.models.unet import UNetXceptionPatchSegmentor
 from tmat_torch.ops import wellmask
 from tmat_torch.ops.zproj import proj_host
+from tmat_torch.ops.threshold import exec_threshold
+from tmat_torch.parallel import plate as tplate
 from tmat_torch.parallel.plate import plate_stage1
 from tmat_torch.tools import plate_pipeline as tpp
 from tmat_torch.topo.transforms import filter_branch_seg_mask
@@ -76,17 +83,17 @@ def jax_draws(monkeypatch):
             jax.random.uniform(jax.random.PRNGKey(seed), (num_iters, 6), jnp.float32)))
 
 
-def _variables(seed=25):
+def _variables(seed=25, filters=FILTERS):
     """Numpy-seeded Flax variables; the head is scaled up so predictions
     saturate away from 0.5 and the thresholded masks are well defined."""
-    _, shapes = build_unet_xception(1, (PATCH, PATCH), channels=1, filter_counts=FILTERS, init="zeros")
+    _, shapes = build_unet_xception(1, (PATCH, PATCH), channels=1, filter_counts=filters, init="zeros")
     rng = np.random.RandomState(seed)
 
     def fill(path, a):
         name = path[-1].key
         if name == "kernel":
             v = rng.randn(*a.shape) / np.sqrt(np.prod(a.shape[:-1]))
-            if path[-2].key == "Conv_4":  # the head
+            if path[-2].key == f"Conv_{2 * len(filters)}":  # the head
                 v *= 40
         elif name in ("scale", "var"):
             v = rng.uniform(0.5, 1.5, a.shape)
@@ -145,6 +152,82 @@ def test_stage1_matches_jax(setup, method):
         assert 0 < f.sum() < f.size
         np.testing.assert_array_equal(filter_branch_seg_mask(f, footprint=None, precomputed_skeleton=s),
                                       jax_filter(f, footprint=None, precomputed_skeleton=s))
+
+
+ONE_DEVICE = make_mesh((1,), ("data",))
+
+
+@pytest.mark.parametrize("method", ["max", "min", "avg", "med", "fs"])
+@pytest.mark.parametrize("dtype", ["uint8", "uint16", "float32"])
+def test_plate_zproj_matches_jax(setup, method, dtype):
+    """The five projections of a (B, Z, H, W) plate at full depth, in JAX's
+    dtypes: integer stacks exact; float32 ones exact but for ``avg``, whose
+    float32 sums run in another order (1e-6 relative). Each equals
+    ``plate_zproj_masked`` at full depth, in float32."""
+    stacks = setup["plate"].astype(dtype)
+    if dtype == "float32":
+        stacks = stacks + np.random.RandomState(3).rand(*stacks.shape).astype(np.float32)
+    ref = np.asarray(jplate.plate_zproj(ONE_DEVICE, jnp.asarray(stacks), method))
+    out = tplate.plate_zproj(torch.from_numpy(stacks), method, device="cpu").numpy()
+    assert out.dtype == ref.dtype and out.shape == (len(stacks), HW, HW)
+    if dtype == "float32" and method == "avg":
+        np.testing.assert_allclose(out, ref, rtol=1e-6, atol=0)
+    else:
+        np.testing.assert_array_equal(out, ref)
+    masked = tplate.plate_zproj_masked(torch.from_numpy(stacks), None, method).numpy()
+    np.testing.assert_allclose(out.astype(np.float32), masked, rtol=1e-6 if method == "avg" else 0, atol=0)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("sd_coef", [SD_COEF, 0.0])
+def test_plate_threshold_matches_jax(setup, masked, sd_coef):
+    """Rescale, mask, GMM threshold and binarise: uint8 equal to JAX's,
+    without masks (JAX passes ones) and with them. Without masks the GMM's
+    weights are ones either way, so ``exec_threshold`` with ``None``, as
+    ``plate_stage1`` passed it before, gives the same bits."""
+    imgs = np.stack([proj_host(s, "max") for s in setup["plate"]]).astype(np.float32)
+    masks = None
+    if masked:
+        rr, cc = np.mgrid[0:HW, 0:HW]
+        masks = np.stack([((rr - 48) ** 2 + (cc - 44 - 4 * i) ** 2 < 40 ** 2) for i in range(len(imgs))])
+        masks = masks.astype(np.float32)
+    ref = np.asarray(jplate.plate_threshold(ONE_DEVICE, jnp.asarray(imgs), sd_coef,
+                                            None if masks is None else jnp.asarray(masks)))
+    out = tplate.plate_threshold(imgs, sd_coef, masks, device="cpu").numpy()
+    assert out.dtype == ref.dtype == np.uint8 and 0 < ref.mean() < 0.5
+    np.testing.assert_array_equal(out, ref)
+    if not masked:
+        scaled = tplate.rescale_intensity(torch.tensor(imgs), dims=(-2, -1))
+        assert torch.equal(exec_threshold(scaled, None, sd_coef),
+                           exec_threshold(scaled, torch.ones_like(scaled), sd_coef))
+
+
+@pytest.fixture(scope="module")
+def unet_8_32(setup):
+    """A UNet of filters 8-16-32, patch 32, in both packages (float32)."""
+    ckpt = setup["root"] / "unet_8_32.msgpack"
+    save_params(ckpt, _variables(7, (8, 16, 32)))
+    return (JaxSegmentor(PATCH, ckpt, (8, 16, 32), ds_ratio=1.0, dtype=jnp.float32)._pred_fn,
+            UNetXceptionPatchSegmentor(PATCH, ckpt, (8, 16, 32), ds_ratio=1.0, dtype=torch.float32,
+                                       device="cpu")._pred_fn)
+
+
+@pytest.mark.parametrize("model", ["identity", "unet"])
+def test_plate_segment_matches_jax(unet_8_32, model):
+    """Tiled segmentation of a plate of two 40 x 44 wells (16 patches each,
+    TTA 8): with an identity model the blend gives the wells back exactly
+    as JAX's does (1e-6); with the 8-16-32 UNet, within 1e-4 of JAX's
+    ``plate_segment``, as stage 1's predictions."""
+    imgs = np.random.RandomState(11).rand(2, 40, 44).astype(np.float32)
+    jax_pred, pred = ((lambda b: b), (lambda b: b)) if model == "identity" else unet_8_32
+    ref = np.asarray(jplate.plate_segment(ONE_DEVICE, jnp.asarray(imgs), jax_pred, PATCH, 2))
+    out = tplate.plate_segment(imgs, pred, PATCH, 2, device="cpu").numpy()
+    assert out.shape == ref.shape == imgs.shape and out.dtype == np.float32
+    np.testing.assert_allclose(out, ref, atol=1e-6 if model == "identity" else 1e-4, rtol=0)
+    if model == "identity":
+        np.testing.assert_allclose(out, imgs, atol=1e-6, rtol=0)
+    else:
+        assert np.ptp(ref) > 0.3, "a flat prediction makes the comparison vacuous"
 
 
 def _assert_results_close(out, ref):

@@ -54,7 +54,8 @@ def _rand_variables(last_layer, size, n_outputs=2, output_act="linear", seed=0):
 
 
 def _port(variables, last_layer, size, n_outputs=2, output_act="linear", dtype=torch.float32):
-    net = tr.build_resnet50_tl(n_outputs, (size, size, 3), last_layer, output_act, dtype, "cpu")
+    net = tr.build_resnet50_tl(n_outputs, (size, size, 3), last_layer, output_act, dtype, init="zeros",
+                               device="cpu")
     return tr.load_member(net, from_flax_resnet_variables(variables))
 
 
@@ -124,7 +125,7 @@ def test_keras_v1_layout():
 def test_from_flax_resnet_variables_on_the_shipped_member():
     variables = load_variables(SHIPPED_MEMBER)
     weights = from_flax_resnet_variables(variables)
-    net = tr.build_resnet50_tl(1, (256, 256, 3), "conv4_block6_out", device="cpu")
+    net = tr.build_resnet50_tl(1, (256, 256, 3), "conv4_block6_out", init="zeros", device="cpu")
     state = net.state_dict()
     assert set(weights) == set(state)
     assert all(weights[k].shape == tuple(state[k].shape) and weights[k].dtype == np.float32
@@ -145,7 +146,7 @@ def test_from_flax_resnet_variables_on_the_shipped_member():
     head = variables["params"]["head"]
     np.testing.assert_array_equal(net.head.weight.numpy(), head["kernel"].T)
     with pytest.raises(ValueError, match="do not fit"):
-        tr.load_member(tr.build_resnet50_tl(1, (64, 64, 3), "conv5_block1_out", device="cpu"),
+        tr.load_member(tr.build_resnet50_tl(1, (64, 64, 3), "conv5_block1_out", init="zeros", device="cpu"),
                        weights)
 
 

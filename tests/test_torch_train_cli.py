@@ -137,7 +137,8 @@ def test_train_invasion_writes_members_both_packages_load(tmp_path, model_dirs):
         jtree = load_params(ckpt, template)
         np.testing.assert_array_equal(np.asarray(jtree["params"]["head"]["kernel"]),
                                       tree["params"]["head"]["kernel"])
-        member = load_member(build_resnet50_tl(1, (32, 32, 3), "conv2_block3_out", device="cpu"),
+        member = load_member(build_resnet50_tl(1, (32, 32, 3), "conv2_block3_out", init="zeros",
+                                               device="cpu"),
                              from_flax_resnet_variables(tree))
         probs = ensemble_forward([member], torch.randn(3, 32, 32, 3) * 30)
         assert probs.shape == (1, 3, 1) and torch.isfinite(probs).all()

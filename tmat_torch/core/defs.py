@@ -19,7 +19,9 @@ import numpy as np
 
 SUPPORTED_IMAGE_FORMATS = ("ND2", "TIF", "TIFF", "OME-TIFF", "PNG")
 
+MAX_UINT16 = np.iinfo(np.uint16).max
 MAX_UINT8 = np.iinfo(np.uint8).max
+EPSILON = np.finfo(np.float32).eps
 
 PKG_NAME = "tmat_tpu"  # the user base dir and its package.cfg section
 REPO_DIR = Path(__file__).resolve().parent.parent.parent
@@ -46,6 +48,7 @@ def _read_user_base_dir() -> Path:
 BASE_DIR = _read_user_base_dir()
 MODEL_TRAINING_DIR = BASE_DIR / "model_training"
 SCRIPT_CONFIG_DIR = BASE_DIR / "config"
+OUTPUT_DIR = BASE_DIR / "output"
 
 
 def default_config_path(name: str) -> Path:

@@ -1,7 +1,7 @@
 """Checkpoint reader and writer, and weight carry-over, in the JAX package's format.
 
 Counterpart of ``tmat_tpu/models/params_io.py`` (``load_params`` and
-``save_params``). A Flax
+``save_params``; ``load_variables`` reads a file without a template). A Flax
 checkpoint is a msgpack map of the ``{"params", "batch_stats"}`` tree whose
 array leaves are msgpack ext records of type 1 (ndarray) or 3 (numpy
 scalar); the payload is itself msgpack: ``(shape, dtype name, C-order
@@ -282,12 +282,12 @@ def _cast_floats(tree: Any, dtype) -> Any:
     return arr.astype(dtype) if np.issubdtype(arr.dtype, np.floating) else arr
 
 
-def save_params(path, tree: Any, dtype=None) -> None:
-    """Write ``tree`` as a Flax checkpoint; ``dtype=np.float16`` stores the
-    float leaves at half precision (the reader casts them back)."""
+def save_params(path, variables: Any, dtype=None) -> None:
+    """Write the tree ``variables`` as a Flax checkpoint; ``dtype=np.float16``
+    stores the float leaves at half precision (the reader casts them back)."""
     if dtype is not None:
-        tree = _cast_floats(tree, np.dtype(dtype))
-    data = to_msgpack(tree)
+        variables = _cast_floats(variables, np.dtype(dtype))
+    data = to_msgpack(variables)
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     with open(path, "wb") as fp:
@@ -299,6 +299,34 @@ def load_variables(path) -> Dict[str, Any]:
     with float leaves as float32 numpy arrays."""
     with open(path, "rb") as fp:
         return read_msgpack(fp.read())
+
+
+def _restore(template: Any, state: Any, path: str) -> Any:
+    if isinstance(template, dict):
+        if not isinstance(state, dict):
+            raise ValueError(f"{path or 'the root'}: the template has a dict, the checkpoint a leaf")
+        missing = sorted(set(map(str, template)) - set(state))
+        if missing:
+            raise ValueError(f"{path or 'the root'}: the checkpoint lacks the template's keys {missing[:6]}")
+        return {k: _restore(v, state[str(k)], f"{path}/{k}") for k, v in template.items()}
+    if isinstance(state, dict):
+        raise ValueError(f"{path}: the template has a leaf, the checkpoint a dict")
+    if not np.issubdtype(np.asarray(state).dtype, np.floating):
+        return state
+    if isinstance(template, torch.Tensor):
+        return torch.as_tensor(np.asarray(state)).to(template.device, template.dtype)
+    return np.asarray(state, np.asarray(template).dtype)
+
+
+def load_params(path, template: Any) -> Any:
+    """A Flax checkpoint in the structure of ``template``, a nested dict such
+    as ``load_variables`` or ``layers.flax_variables`` gives. Every key of the
+    template must be in the file, each at the same depth; keys that only the
+    file has are dropped (``flax.serialization.from_bytes``). Float leaves
+    take their template leaf's dtype: a numpy leaf gives a numpy array, a
+    tensor leaf (bfloat16 too) a tensor on its device; other leaves are
+    returned as read."""
+    return _restore(template, load_variables(path), "")
 
 
 def _fold_bn(kernel, bias, scale, bn_bias, mean, var, eps) -> Tuple[np.ndarray, np.ndarray]:

@@ -34,8 +34,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from tmat_torch.device import DeviceLike, resolve_device
-from tmat_torch.models.layers import BatchNorm, Conv, init_kernels
-from tmat_torch.models.params_io import RESNET_BN_EPS
+from tmat_torch.models.layers import BatchNorm, Conv, flax_variables, init_kernels
+from tmat_torch.models.params_io import RESNET_BN_EPS, from_flax_resnet_variables
+
+BN_EPS = RESNET_BN_EPS
 
 # blocks and filters per stage of ResNet50
 _STAGE_BLOCKS = {2: 3, 3: 4, 4: 6, 5: 3}
@@ -247,16 +249,32 @@ def build_resnet50_tl(
     base_last_layer: str = "conv5_block3_out",
     output_act: str = "sigmoid",
     dtype: torch.dtype = torch.float32,
+    seed: int = 0,
+    init: str = "random",
     device: DeviceLike = None,
 ) -> ResNet50TL:
     """The classifier in eval mode on ``device`` (None = CUDA): the base in
-    ``dtype`` (channels last on CUDA), the head in float32. Weights come
-    from ``load_state_dict`` (``params_io.from_flax_resnet_variables``)."""
+    ``dtype`` (channels last on CUDA), the head in float32.
+
+    ``init="random"`` gives it the weights of Flax's ``model.init(
+    jax.random.PRNGKey(seed))``: ``build_trainable_resnet50_tl(seed=seed)``'s
+    kernels, BatchNorm folded in (``params_io.from_flax_resnet_variables``).
+    ``init="zeros"`` draws nothing and sets every weight to 0, for a
+    checkpoint to overwrite (``load_member``)."""
     if tuple(img_shape)[-1] != 3:
         raise ValueError(f"the classifier takes 3-channel inputs, not {img_shape}")
+    if init not in ("random", "zeros"):
+        raise ValueError(f"unknown init {init!r}")
     dev = resolve_device(device)
     model = ResNet50TL(n_outputs, base_last_layer, output_act).eval().requires_grad_(False)
     model.to(dev)
+    if init == "random":
+        # the activation draws nothing: the trainable twin takes no None
+        drawn = build_trainable_resnet50_tl(n_outputs, img_shape, base_last_layer, "linear", seed, dev)
+        load_member(model, from_flax_resnet_variables(flax_variables(drawn)))
+    else:
+        for t in model.state_dict().values():
+            t.zero_()
     model.base.to(dtype=dtype, memory_format=(torch.channels_last if dev.type == "cuda"
                                               else torch.contiguous_format))
     return model

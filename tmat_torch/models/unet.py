@@ -260,23 +260,34 @@ def build_unet_xception(
     channels: int = 1,
     filter_counts: Tuple[int, ...] = (32, 64, 128, 256),
     output_act: str = "sigmoid",
+    dtype: torch.dtype = torch.float32,
     seed: int = 0,
     bn_momentum: float = 0.99,
+    init: str = "random",
     device: DeviceLike = None,
 ) -> TrainableUNetXception:
-    """The trainable UNet on ``device`` (None = CUDA), initialised as Flax's
-    ``model.init(jax.random.PRNGKey(seed))`` initialises it: the same
-    lecun-normal kernels (``layers.init_kernels``, drawn on ``device``), zero
-    biases, BN scale 1, statistics 0 / 1.
+    """The trainable UNet on ``device`` (None = CUDA), computing in ``dtype``
+    (its weights' dtype). ``init="random"`` initialises it as Flax's
+    ``model.init(jax.random.PRNGKey(seed))`` does: the same lecun-normal
+    kernels (``layers.init_kernels``, drawn in float32 on ``device``), zero
+    biases, BN scale 1, statistics 0 / 1. ``init="zeros"`` sets every weight
+    and statistic to 0 and draws nothing, for a checkpoint to overwrite.
     ``img_shape`` (the patch size) must be divisible by 2**len(filter_counts)."""
+    if init not in ("random", "zeros"):
+        raise ValueError(f"unknown init {init!r}")
     dev = resolve_device(device)
     h, w = img_shape
     if h % 2 ** len(filter_counts) or w % 2 ** len(filter_counts):
         raise ValueError(f"patch {img_shape} is not divisible by 2**{len(filter_counts)}")
     model = TrainableUNetXception(n_outputs, tuple(filter_counts), output_act, bn_momentum,
                                   channels).to(dev)
-    init_kernels(model, seed)
-    return model
+    if init == "random":
+        init_kernels(model, seed)
+    else:
+        with torch.no_grad():
+            for t in model.state_dict().values():
+                t.zero_()
+    return model.to(dtype)
 
 
 class UNetXceptionPatchSegmentor:

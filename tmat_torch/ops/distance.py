@@ -39,3 +39,8 @@ def edt_batch(masks: torch.Tensor, row_chunk: int = 32) -> torch.Tensor:
         block = g2[:, r0 : r0 + row_chunk]  # (B, chunk, W')
         out[:, r0 : r0 + row_chunk] = (block[:, :, None, :] + dcol2).amin(dim=-1)
     return torch.sqrt(out)
+
+
+def edt(mask: torch.Tensor, row_chunk: int = 32) -> torch.Tensor:
+    """Exact EDT of the foreground of one 2-D mask."""
+    return edt_batch(mask[None], row_chunk)[0]

@@ -56,6 +56,10 @@ def binary_opening(x: torch.Tensor, footprint: np.ndarray) -> torch.Tensor:
     return binary_dilation(binary_erosion(x, footprint), footprint)
 
 
+dilation = binary_dilation  # the reference's grey-level call sites take binary masks
+closing = binary_closing
+
+
 def _zhang_suen_subiter(x: torch.Tensor, first: bool) -> torch.Tensor:
     """One sub-iteration on a (B, H, W) uint8 {0, 1} batch."""
     h, w = x.shape[-2:]
@@ -81,14 +85,17 @@ def _zhang_suen_subiter(x: torch.Tensor, first: bool) -> torch.Tensor:
     return torch.where(delete, torch.zeros_like(x), x)
 
 
-def skeletonize(masks: torch.Tensor) -> torch.Tensor:
-    """Zhang-Suen skeletons of a (B, H, W) batch of masks (bool).
+def skeletonize(mask: torch.Tensor) -> torch.Tensor:
+    """Zhang-Suen skeleton (bool) of an (H, W) mask, or of each mask of a
+    (B, H, W) batch.
 
     The batch iterates until no mask changes; a mask whose pass deleted
     nothing is a fixed point, so further passes leave it as it is and
     each result is the one its own loop would reach. One host sync per
     pass."""
-    x = (masks > 0).to(torch.uint8)
+    x = (mask > 0).to(torch.uint8)
+    if mask.dim() == 2:
+        return skeletonize(x[None])[0]
     while True:
         x2 = _zhang_suen_subiter(_zhang_suen_subiter(x, True), False)
         changed = bool((x2 != x).any())

@@ -2,10 +2,11 @@
 
 Counterpart of ``tmat_tpu/ops/resize.py::resize`` (``lanczos`` ->
 lanczos3, ``lanczos4`` -> jax's lanczos5 kernel, ``cubic`` -> Keys cubic,
-``linear``, ``nearest``; antialiased). ``F.interpolate`` uses
-other weights, so the weight matrices are rebuilt in numpy from
+``linear``, ``nearest``). ``F.interpolate`` uses other weights, so the
+weight matrices are rebuilt in numpy from
 ``jax._src.image.scale.compute_weight_mat``: pixel centres aligned, the
-kernel stretched by 1/scale when downsampling, each output's weights
+kernel stretched by 1/scale when downsampling (``antialias``, the
+default), each output's weights
 normalised to sum 1, and outputs whose sample point lies outside the
 input zeroed. They are applied as two matmuls; a dim whose size does not
 change is left as it is. Integer inputs are rounded and clipped.
@@ -61,14 +62,15 @@ _KERNELS = {"lanczos": _lanczos3, "lanczos3": _lanczos3, "lanczos4": _lanczos(5.
 
 
 @lru_cache(maxsize=64)
-def weight_matrix(in_size: int, out_size: int, method: str) -> np.ndarray:
-    """(out_size, in_size) float32 resampling weights (antialiased).
-    Cached: callers copy it (``torch.tensor``) and never write to it."""
+def weight_matrix(in_size: int, out_size: int, method: str, antialias: bool = True) -> np.ndarray:
+    """(out_size, in_size) float32 resampling weights; without
+    ``antialias`` the kernel is not stretched when downsampling. Cached:
+    callers copy it (``torch.tensor``) and never write to it."""
     kernel = _KERNELS[method]
     # float32 throughout, as jax computes them: float64 weights differ from
     # jax's by up to 2e-5 at 1024 -> 640
     inv_scale = np.float32(1.0 / (out_size / in_size))
-    kernel_scale = np.maximum(inv_scale, np.float32(1.0))
+    kernel_scale = np.maximum(inv_scale, np.float32(1.0)) if antialias else np.float32(1.0)
     sample = (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * inv_scale - np.float32(0.5)
     x = np.abs(sample[:, None] - np.arange(in_size, dtype=np.float32)[None, :]) / kernel_scale
     w = kernel(x)
@@ -85,8 +87,10 @@ def nearest_index(in_size: int, out_size: int) -> np.ndarray:
     return np.floor(offsets / np.float32(out_size)).astype(np.int64)
 
 
-def resize(img: torch.Tensor, shape: Tuple[int, int], method: str = "linear") -> torch.Tensor:
-    """Resize the trailing (H, W) axes of ``img`` to ``shape`` (rows, cols)."""
+def resize(img: torch.Tensor, shape: Tuple[int, int], method: str = "linear",
+           antialias: bool = True) -> torch.Tensor:
+    """Resize the trailing (H, W) axes of ``img`` to ``shape`` (rows, cols);
+    ``antialias`` low-pass filters when downsampling (``nearest`` ignores it)."""
     h, w = img.shape[-2:]
     oh, ow = int(shape[0]), int(shape[1])
     dtype = img.dtype
@@ -103,10 +107,10 @@ def resize(img: torch.Tensor, shape: Tuple[int, int], method: str = "linear") ->
         raise ValueError(f"unsupported resize method {method!r}")
     out = img.float()
     if oh != h:
-        wh = torch.tensor(weight_matrix(h, oh, method), device=img.device)
+        wh = torch.tensor(weight_matrix(h, oh, method, antialias), device=img.device)
         out = wh @ out
     if ow != w:
-        ww = torch.tensor(weight_matrix(w, ow, method), device=img.device)
+        ww = torch.tensor(weight_matrix(w, ow, method, antialias), device=img.device)
         out = out @ ww.t()
     if not dtype.is_floating_point:
         info = torch.iinfo(dtype)

@@ -2,7 +2,8 @@
 stacking.
 
 ``proj_avg/med/max/min`` and ``proj_focus_stacking`` (``PROJ_METHODS``)
-reduce a whole stack, as the zproj tool does. ``proj_host`` reduces an
+reduce a whole stack, as the zproj tool does (``proj_focus_stacking_batch``
+a (B, Z, H, W) plate of them). ``proj_host`` reduces an
 unpadded (Z, H, W) stack in numpy as each well is decoded;
 ``proj_masked`` and ``proj_masked_batch`` reduce Z-padded stacks on the
 device, masking slices at or beyond ``z_count``. Host and masked
@@ -88,6 +89,15 @@ def proj_focus_stacking(stack: torch.Tensor, axis: int = 0, kernel_size: int = 5
     if axis != 0:
         stack = stack.movedim(axis, 0)
     return _fs_batch(stack[None], None, kernel_size)[0]  # None: the full depth
+
+
+def proj_focus_stacking_batch(stacks: torch.Tensor) -> torch.Tensor:
+    """``proj_focus_stacking`` of each stack of a (B, Z, H, W) plate at full
+    depth, in the stacks' dtype: one launch of the focus-stacking kernel on
+    a CUDA tensor, its plain version on the CPU."""
+    if stacks.dim() != 4:
+        raise ValueError(f"a plate of stacks is (B, Z, H, W), got {tuple(stacks.shape)}")
+    return _fs_batch(stacks, None, 5)
 
 
 PROJ_METHODS = {

@@ -77,7 +77,7 @@ def load_ensemble(checkpoints: Sequence[Path], img_shape: Tuple[int, int, int], 
     dtype = dtype or default_dtype(dev)
     members = []
     for ckpt in checkpoints:
-        model = build_resnet50_tl(1, img_shape, last_layer, dtype=dtype, device=dev)
+        model = build_resnet50_tl(1, img_shape, last_layer, dtype=dtype, init="zeros", device=dev)
         members.append(load_member(model, from_flax_resnet_variables(load_variables(ckpt))))
     return members
 

@@ -2,6 +2,8 @@
 
 Counterparts in ``tmat_tpu/topo/transforms.py``: the footprint median
 (``median_filter_footprint``, and the batched disk(2) form of the plate),
+the weighted graph of a skeleton (``nx_graph_from_binary_skeleton``, which
+imports ``networkx`` when it is called: the card has none),
 ``filter_branch_seg_mask``, which drops components that are too circular
 or whose skeleton has no fork, and ``remove_small_islands``. The medians
 and the skeleton run on the tensors' device; labeling and the decisions
@@ -21,7 +23,7 @@ from tmat_torch.topo import labeling_native
 from tmat_torch.topo import regionprops as rp
 
 
-def median_filter_footprint(x: torch.Tensor, footprint: np.ndarray) -> torch.Tensor:
+def median_filter_footprint(img: torch.Tensor, footprint: np.ndarray) -> torch.Tensor:
     """Rank median over ``footprint`` of the trailing (H, W) axes, edge
     padding (skimage.filters.median, mode='nearest'), float32. An even
     number of taps gives the mean of the two middle values, as
@@ -29,8 +31,8 @@ def median_filter_footprint(x: torch.Tensor, footprint: np.ndarray) -> torch.Ten
     fp = np.asarray(footprint) > 0
     kh, kw = fp.shape
     ry, rx = (kh - 1) // 2, (kw - 1) // 2
-    h, w = x.shape[-2:]
-    padded = pad_hw(x.float(), ry, kh - 1 - ry, rx, kw - 1 - rx, "nearest")
+    h, w = img.shape[-2:]
+    padded = pad_hw(img.float(), ry, kh - 1 - ry, rx, kw - 1 - rx, "nearest")
     taps = torch.stack([padded[..., dy : dy + h, dx : dx + w]
                         for dy in range(kh) for dx in range(kw) if fp[dy, dx]])
     n = taps.shape[0]
@@ -43,6 +45,54 @@ def median_filter_footprint(x: torch.Tensor, footprint: np.ndarray) -> torch.Ten
 def median_filter_disk2_batch(x: torch.Tensor) -> torch.Tensor:
     """disk(2) median (13 taps, edge padding) of a (B, H, W) batch."""
     return median_filter_footprint(x, disk(2))
+
+
+median_filter_batch = median_filter_disk2_batch
+
+
+def nx_graph_from_binary_skeleton(skeleton: np.ndarray):
+    """The weighted undirected ``networkx`` graph of a 2-D binary skeleton:
+    a node per skeleton pixel (numbered in ``np.argwhere`` order, positions
+    in ``graph["physical_pos"]``), an edge between 8-neighbours weighted by
+    their distance (1 or sqrt(2)), and the pixels with no neighbour as
+    isolated nodes."""
+    import networkx as nx
+
+    skeleton = np.asarray(skeleton).astype(bool)
+    g = nx.Graph()
+    node_pos = np.argwhere(skeleton)
+    g.graph["physical_pos"] = node_pos
+    if len(node_pos) == 0:
+        return g
+    node_labels = np.full(skeleton.shape, -1)
+    node_labels[node_pos[:, 0], node_pos[:, 1]] = np.arange(node_pos.shape[0])
+    edge_connected = np.zeros(skeleton.shape, dtype=bool)
+    weighted_edges = []
+
+    def shift_2d(arr, pad_vals):
+        padded = np.pad(arr, pad_vals)
+        pad_bottom, pad_right = pad_vals[0, 1], pad_vals[1, 1]
+        h, w = arr.shape
+        return padded[pad_bottom : h + pad_bottom, pad_right : w + pad_right]
+
+    # each neighbour direction once: down, right, down-right, down-left
+    for shift_rows, shift_cols in [(1, 0), (0, 1), (1, 1), (1, -1)]:
+        pad_vals = np.array([[shift_rows == 1, 0], [shift_cols == 1, shift_cols == -1]])
+        dest_nodes = skeleton * shift_2d(skeleton, pad_vals)
+        if not np.any(dest_nodes):
+            continue
+        src_nodes = shift_2d(dest_nodes, np.flip(pad_vals, axis=1))
+        edge_connected += src_nodes + dest_nodes
+        src_ids = node_labels[(node_labels > -1) & src_nodes]
+        dest_ids = node_labels[(node_labels > -1) & dest_nodes]
+        weight = np.linalg.norm((shift_rows, shift_cols))
+        weighted_edges.extend(zip(src_ids, dest_ids, np.full(src_ids.shape, weight)))
+    g.add_weighted_edges_from(weighted_edges)
+
+    isolated = skeleton * np.logical_not(edge_connected)
+    if np.any(isolated):
+        g.add_nodes_from(node_labels[(node_labels > -1) & isolated].tolist())
+    return g
 
 
 def filter_branch_seg_mask(
