@@ -342,8 +342,9 @@ def test_plate_zproj_fs_goes_through_the_focus_kernel(cuda, dtype):
 @pytest.mark.gpu
 def test_plate_segment_goes_through_the_kernel(cuda):
     """``plate_segment`` of two wells with a bf16 UNet (filters 8-16-32,
-    patch 64): two down-block launches per well, and within 0.05 of the
-    same wells on the plain path."""
+    patch 64): two down-block launches per well, and within 2**-6 of the
+    largest output of the same wells on the plain path (the bf16 rule of
+    the down block's own tests)."""
     from tmat_torch.parallel.plate import plate_segment
 
     rng = np.random.RandomState(2)
@@ -355,7 +356,8 @@ def test_plate_segment_goes_through_the_kernel(cuda):
     assert db.launches == before + 2 * 2
     ref = plate_segment(imgs, lambda b: net(b, plain_down=True), 64, 2)
     assert out.shape == (2, 96, 80) and out.dtype == torch.float32 and torch.isfinite(out).all()
-    assert (out - ref).abs().max().item() < 0.05
+    diff, tol = (out - ref).abs().max().item(), 2.0 ** -6 * ref.abs().max().item()
+    assert diff <= tol, (diff, tol)
 
 
 @pytest.mark.gpu

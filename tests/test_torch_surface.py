@@ -88,6 +88,9 @@ PARAMS_BY_DESIGN = {
                                                                      "process; a port process drives one",
     ("parallel/validation.py", "launch_multihost_workers", "n_local"): "XLA's virtual CPU devices per "
                                                                       "process (see run_coordinated_workers)",
+    ("parallel/validation.py", "run_coordinated_workers", "per_pid_env"): "a per-process XLA environment "
+                                                                         "for the multi-host worker; "
+                                                                         "worker_env sets each rank's",
 }
 
 

@@ -10,10 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tmat_torch.core.defs import MAX_UINT8
 from tmat_torch.ops.filters import cv2_gaussian_kernel, sepconv2d
 from tmat_torch.ops.morphology import euclidean_distance_transform
-from tmat_torch.ops.rescale import bin_thresh
 
 
 def blur(img: torch.Tensor, blur_itr: int, k_size: int = 3, gs: bool = True) -> torch.Tensor:
@@ -28,9 +26,8 @@ def blur(img: torch.Tensor, blur_itr: int, k_size: int = 3, gs: bool = True) -> 
 
 
 def _foreground(img: np.ndarray) -> np.ndarray:
-    """The pixels above 0, as uint8 {0, 255}."""
-    fg = bin_thresh(torch.tensor(np.asarray(img, np.float32)), float(MAX_UINT8))
-    return fg.numpy().round().astype(np.uint8)
+    """The pixels above 0, as uint8 {0, 255} (``bin_thresh`` at 255)."""
+    return np.where(np.asarray(img, np.float32) > 0, 255, 0).astype(np.uint8)
 
 
 def dt_blur(img: np.ndarray, blur_itr: int, k_size: int = 3) -> np.ndarray:

@@ -20,7 +20,7 @@ import subprocess
 import sys
 from pathlib import Path
 from types import SimpleNamespace
-from typing import Callable, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -97,20 +97,17 @@ _INFRA_MARKERS = ("Address already in use", "EADDRINUSE")
 
 
 def run_coordinated_workers(argv_tail: List[str], n_processes: int, extra_env: Optional[dict] = None,
-                            per_pid_env: Optional[Callable[[int], dict]] = None,
                             timeout: float = 900.0) -> List[str]:
     """Run ``[sys.executable, *argv_tail]`` as ``n_processes`` processes of
-    one job over a free localhost port, each with ``extra_env`` and
-    ``per_pid_env(rank)`` added to its environment; returns their stdouts,
-    in rank order. Every process is reaped before this returns or raises. A
-    worker that exits non-zero raises RuntimeError (``InfraFailure`` when the
+    one job over a free localhost port; returns their stdouts, in rank
+    order. Every process is reaped before this returns or raises. A worker
+    that exits non-zero raises RuntimeError (``InfraFailure`` when the
     rendezvous failed, or on the timeout)."""
     port = _free_port()
     procs = []
     for rank in range(n_processes):
         env = worker_env(rank, n_processes, port)
         env.update(extra_env or {})
-        env.update(per_pid_env(rank) if per_pid_env else {})
         procs.append(subprocess.Popen([sys.executable, *argv_tail], env=env, stdout=subprocess.PIPE,
                                       stderr=subprocess.PIPE, text=True))
     outcomes, timed_out = [], False
