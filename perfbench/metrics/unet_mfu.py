@@ -1,0 +1,13 @@
+"""unet_mfu: the segmentor forwards' share of the card's bf16 peak over the
+traced part of the window, %: the operations of the patches the forwards
+took (counted from the configuration's layer shapes, ``work.unet_layers``)
+over the traced window's length times 989 TFLOP/s."""
+
+from perfbench.work import PEAK_BF16_TC
+
+
+def read(run):
+    ts, flops = run.trace_summary, run.driver.traced.get("unet_flops")
+    if ts is None or not flops:
+        return None
+    return flops / (ts.window_s * PEAK_BF16_TC) * 100
