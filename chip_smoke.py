@@ -44,7 +44,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 11. inv_depth: the shipped invasion ensemble (3 of 5 members ranked by
    history, 256^2 input, bf16) through ``compute_inv_depth.predict_rows`` on
    eight uint8 8 x 1024^2 stacks, warmed once and run twice (stacks/sec,
-   then a stage split with the card synchronised at each stage's end), the
+   then a stage split by the host clock: ``host_resize``, ``dispatch``,
+   ``fetch_wait``; the stages no longer synchronise, so the card's time
+   comes from a trace, not from them), the
    seed-5 quality slices (not invaded, invaded), bf16 against f32 on the
    card, the card's f32 against the CPU's, the prep tail on the card
    against the CPU, and the ensemble forward timed with CUDA events beside

@@ -12,6 +12,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tmat_torch.core.profiling import count
+
 
 def disk(radius: int) -> np.ndarray:
     """skimage.morphology.disk: x^2 + y^2 <= r^2."""
@@ -92,12 +94,13 @@ def skeletonize(mask: torch.Tensor) -> torch.Tensor:
     The batch iterates until no mask changes; a mask whose pass deleted
     nothing is a fixed point, so further passes leave it as it is and
     each result is the one its own loop would reach. One host sync per
-    pass."""
+    pass, counted as ``skeleton_passes`` (``core/profiling.py::count``)."""
     x = (mask > 0).to(torch.uint8)
     if mask.dim() == 2:
         return skeletonize(x[None])[0]
     while True:
         x2 = _zhang_suen_subiter(_zhang_suen_subiter(x, True), False)
+        count("skeleton_passes")
         changed = bool((x2 != x).any())
         x = x2
         if not changed:

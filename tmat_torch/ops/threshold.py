@@ -9,7 +9,8 @@ min(255, mu_fg + sd_coef * sigma_fg) of the higher-mean component.
 The JAX package vmaps a ``while_loop``; here every image of the batch
 steps together and a per-image "still running" mask freezes the finished
 ones, which leaves each image's result what it would be alone. The loop
-syncs with the host once per EM iteration for the whole batch.
+syncs with the host once per EM iteration for the whole batch, and counts
+each sync as ``gmm_iters`` (``core/profiling.py::count``).
 ``exec_threshold`` is batched already, so ``exec_threshold_batch`` is its
 other name. ``otsu_threshold`` is skimage's ``threshold_otsu`` over the
 image's value range.
@@ -23,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 from tmat_torch.core.defs import MAX_UINT8
+from tmat_torch.core.profiling import count
 
 _REG_COVAR = 1e-6
 _EM_TOL = 1e-3
@@ -67,6 +69,7 @@ def gmm2_fit(
     it = 0
     while it < n_iter:
         running = torch.abs(ll_curr - ll_prev) >= _EM_TOL
+        count("gmm_iters")  # the host sync below
         if not bool(running.any()):
             break
         diff = x[:, None, :] - mu[:, :, None]  # (B, 2, N)

@@ -32,6 +32,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from tmat_torch.core.profiling import StageTimer
 from tmat_torch.device import DeviceLike, resolve_device
 from tmat_torch.ops.distance import edt_batch
 from tmat_torch.ops.morphology import skeletonize
@@ -126,6 +127,7 @@ def plate_stage1(
     z_counts: Optional[Sequence[int]] = None,
     pre_projected: bool = False,
     tta: int = 8,
+    timer: Optional[StageTimer] = None,
 ):
     """One chunk of wells through stage 1.
 
@@ -134,25 +136,37 @@ def plate_stage1(
     ``wm_small`` are (B, *target) well masks: the area is then the
     thresholded fraction of the well's pixels and the segmentor sees the
     well only. Returns (area (B,), preds (B, *target) f32, packed filtered
-    masks, packed skeletons), all on the stacks' device.
+    masks, packed skeletons), all on the stacks' device. ``timer`` times
+    the parts as stages ``zproj`` (when it runs), ``resize``,
+    ``threshold``, ``segment`` and ``median_skeleton``: host time, as the
+    host enqueues them and waits in the GMM's and the skeleton's syncs.
     """
-    proj = stacks.float() if pre_projected else plate_zproj_masked(stacks, z_counts, proj_method)
-    small = rescale_intensity(resize(proj, target, "lanczos"), dims=(-2, -1))
-    wm_full = None
-    if wm_small is not None:
-        wm_small = wm_small.float()
-        wm_full = (resize(wm_small, proj.shape[-2:], "nearest") > 0).float()
-        small = small * wm_small
-    thresh = plate_threshold(proj, sd_coef, wm_full, device=proj.device).float()
-    if wm_full is None:
-        area = thresh.mean(dim=(-2, -1))
+    stage = (timer or StageTimer()).stage
+    if pre_projected:
+        proj = stacks.float()
     else:
-        area = thresh.sum(dim=(-2, -1)) / torch.clamp(wm_full.sum(dim=(-2, -1)), min=1.0)
-    preds = plate_segment(small, pred_func, window_size, subdivisions, tta, device=small.device)
-    seg = (preds > 0.5).float()
-    filtered = median_filter_disk2_batch(seg) > 0.5
-    skels = skeletonize(filtered)
-    return area, preds, packbits(filtered), packbits(skels)
+        with stage("zproj"):
+            proj = plate_zproj_masked(stacks, z_counts, proj_method)
+    with stage("resize"):
+        small = rescale_intensity(resize(proj, target, "lanczos"), dims=(-2, -1))
+        wm_full = None
+        if wm_small is not None:
+            wm_small = wm_small.float()
+            wm_full = (resize(wm_small, proj.shape[-2:], "nearest") > 0).float()
+            small = small * wm_small
+    with stage("threshold"):
+        thresh = plate_threshold(proj, sd_coef, wm_full, device=proj.device).float()
+        if wm_full is None:
+            area = thresh.mean(dim=(-2, -1))
+        else:
+            area = thresh.sum(dim=(-2, -1)) / torch.clamp(wm_full.sum(dim=(-2, -1)), min=1.0)
+    with stage("segment"):
+        preds = plate_segment(small, pred_func, window_size, subdivisions, tta, device=small.device)
+    with stage("median_skeleton"):
+        seg = (preds > 0.5).float()
+        filtered = median_filter_disk2_batch(seg) > 0.5
+        skels = skeletonize(filtered)
+        return area, preds, packbits(filtered), packbits(skels)
 
 
 def plate_stage2(

@@ -16,6 +16,13 @@ members' forwards, one after another on one stream. At most
 fetched, so the host resizes the next stacks while the device works
 (``predict_rows``). The file-free core is ``predict_stack``.
 
+Stages, all by the host clock (none waits for the card): ``host_resize``,
+``dispatch`` (the upload, the prep tail and the members' forwards as the
+host enqueues them) and ``fetch_wait`` (the host blocked in the copy of a
+stack's probabilities back). While a ``torch.profiler`` records on the
+thread that calls ``predict_rows``, they are also spans of their stack
+(``core/profiling.py``).
+
 Usage:
     python -m tmat_torch.tools.compute_inv_depth IN_DIR OUT_DIR [-c CONFIG]
 """
@@ -27,7 +34,6 @@ import json
 import os
 import sys
 from collections import deque
-from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -36,7 +42,7 @@ import torch
 
 from tmat_torch.core import defs, io as tio
 from tmat_torch.core.log import SFM, section_footer, section_header
-from tmat_torch.core.profiling import StageTimer
+from tmat_torch.core.profiling import StageTimer, maybe_profile, profiler_active, traced
 from tmat_torch.device import DeviceLike, default_dtype, resolve_device
 from tmat_torch.models.params_io import from_flax_resnet_variables, load_variables
 from tmat_torch.models.preprocess import host_resize, prep_tail
@@ -82,29 +88,17 @@ def load_ensemble(checkpoints: Sequence[Path], img_shape: Tuple[int, int, int], 
     return members
 
 
-@contextmanager
-def _stage(timer: Optional[StageTimer], name: str, dev: torch.device):
-    """A timed stage; on CUDA it ends when the device has done its work."""
-    if timer is None:
-        yield
-        return
-    with timer.stage(name):
-        yield
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-
 def dispatch_stack(stack: np.ndarray, ensemble: Sequence[ResNet50TL], img_hw: Tuple[int, int],
                    timer: Optional[StageTimer] = None) -> torch.Tensor:
     """Queue one (Z, H, W) or (H, W) stack on the ensemble's device:
     (k, Z, 1) member probabilities, still on the device."""
     dev = next(ensemble[0].parameters()).device
-    with _stage(timer, "host_resize", dev):
+    timer = timer or StageTimer()
+    with timer.stage("host_resize"):
         resized = host_resize(stack, img_hw)
-    with _stage(timer, "upload_tail", dev):
+    with timer.stage("dispatch"):
         # pageable: pinning a fresh buffer for each stack costs more than the copy
         x = prep_tail(torch.from_numpy(resized).to(dev))
-    with _stage(timer, "forward", dev):
         return ensemble_forward(ensemble, x)
 
 
@@ -133,14 +127,18 @@ def predict_rows(stacks: Iterable[Tuple[str, np.ndarray]], ensemble: Sequence[Re
     stacks wait on the device: the host resizes the next ones meanwhile."""
     rows: List[Dict] = []
     pending: deque = deque()
+    timer = timer or StageTimer()
 
     def collect_one():
-        stack_id, yhat = pending.popleft()
-        with _stage(timer, "fetch_mean", torch.device("cpu")):
-            rows.extend(stack_rows(stack_id, yhat.cpu().numpy(), cls_thresh))
+        stack_id, yhat, on = pending.popleft()
+        with traced(on, stack_id), timer.stage("fetch_wait"):
+            probs = yhat.cpu()
+        rows.extend(stack_rows(stack_id, probs.numpy(), cls_thresh))
 
     for stack_id, stack in stacks:
-        pending.append((stack_id, dispatch_stack(stack, ensemble, img_hw, timer)))
+        on = profiler_active()  # once per stack, on this thread (module doc)
+        with traced(on, stack_id):
+            pending.append((stack_id, dispatch_stack(stack, ensemble, img_hw, timer), on))
         if len(pending) >= MAX_IN_FLIGHT:
             collect_one()
     while pending:
@@ -247,7 +245,8 @@ def main(args=None, argv=None, device: DeviceLike = None):
             row_owners.extend([gidx] * (1 if img.ndim == 2 else len(img)))
             yield zstack_id, img
 
-    rows = predict_rows(load_stacks(), ensemble, resnet_inp_shape[:-1], cls_thresh)
+    with maybe_profile("inv_depth"):  # a trace under $TMAT_TORCH_PROFILE_DIR/inv_depth, if set
+        rows = predict_rows(load_stacks(), ensemble, resnet_inp_shape[:-1], cls_thresh)
     merged, errors = merge_striped_rows(list(zip(row_owners, rows)), stripe_error)
     if errors:
         for e in errors:

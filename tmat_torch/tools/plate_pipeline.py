@@ -12,6 +12,14 @@ stage 1 analyses: the area is then a fraction of the well, the segmentor
 sees the well only, and a shrunken mask prunes branches at the well's
 edge. Device work is issued under one lock onto the current stream.
 
+While a ``torch.profiler`` records on the calling thread, each call's
+stages are also spans (``core/profiling.py``) of their well (the call's
+sequence number and the well id): ``well``, from the producer's hand-off
+to the end of the well's ``morse_graphs``, causes the chunk's
+``device_lock_wait`` (both acquisitions), ``device_stage1`` (with stage
+1's parts and ``to_host``), ``post_filter``, ``post_stage2`` and
+``morse_graphs``.
+
 Under torchrun each process runs a round-robin stripe of the wells, and
 the primary writes the CSV from every process's per-well rows, in the
 plate's well order (``parallel/distributed.py``). Where the JAX package
@@ -28,12 +36,14 @@ from __future__ import annotations
 
 import argparse
 import csv
+import itertools
 import queue as queue_mod
 import sys
 import threading
 import time
 import traceback
 from collections import deque
+from contextlib import contextmanager
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait as futures_wait
 from pathlib import Path
 from typing import Dict, Optional, Sequence
@@ -43,7 +53,7 @@ import torch
 
 from tmat_torch.core import defs, io as tio
 from tmat_torch.core.log import SFM, section_footer, section_header
-from tmat_torch.core.profiling import StageTimer
+from tmat_torch.core.profiling import Span, StageTimer, count, maybe_profile, profiler_active, traced
 from tmat_torch.device import DeviceLike, resolve_device
 from tmat_torch.models.unet import get_unet_patch_segmentor_from_cfg
 from tmat_torch.ops.resize import resize
@@ -57,6 +67,7 @@ from tmat_torch.topo.morse_native import morse_stats_native
 from tmat_torch.topo.transforms import filter_branch_seg_mask
 
 DOWNSAMPLE_WIDTH = 384
+_plate_calls = itertools.count()  # sequence numbers of run_plate_streaming calls, for span items
 RESULT_KEYS = ("well_id", "area_pct", "total_branches", "total_branch_length_um",
                "avg_branch_length_um")
 
@@ -144,6 +155,8 @@ def run_plate_streaming(
     stage-1 call (one well is one UNet forward of all its patches).
     ``device=None`` means CUDA and must match the segmentor's device.
     """
+    traced_call = profiler_active()  # once per call, on the caller's thread (module doc)
+    seq = next(_plate_calls)
     dev = resolve_device(device)
     if segmentor.device != dev:
         raise ValueError(f"segmentor is on {segmentor.device}, the plate on {dev}")
@@ -164,6 +177,18 @@ def run_plate_streaming(
     stop = threading.Event()
     device_lock = threading.Lock()
 
+    @contextmanager
+    def on_device(name: str):
+        """Stage ``name`` under the device lock; the wait for the lock is
+        a stage of its own, outside it."""
+        with timer.stage("device_lock_wait"):
+            device_lock.acquire()
+        try:
+            with timer.stage(name):
+                yield
+        finally:
+            device_lock.release()
+
     def _put(item) -> None:
         """Enqueue, giving up once the consumer has stopped."""
         while not stop.is_set():
@@ -178,7 +203,9 @@ def run_plate_streaming(
             ids, buf, zcs = [], [], []
 
             def flush():
-                _put((list(ids), np.stack(buf), list(zcs)))
+                chunk = np.stack(buf)
+                wells_open = [Span("well", f"{seq}/{wid}") for wid in ids] if traced_call else []
+                _put((list(ids), chunk, list(zcs), wells_open))
                 ids.clear(), buf.clear(), zcs.clear()
 
             for wid, stack in wells:
@@ -212,10 +239,19 @@ def run_plate_streaming(
         pruning = (resize(outside, dsamp, "nearest") > 0).cpu().numpy()
         return wm, list(pruning)
 
-    def chunk_task(chunk_np: np.ndarray, zcs):
-        """One chunk end to end, in a pool thread."""
+    def chunk_task(chunk_np: np.ndarray, zcs, ids, wells_open):
+        """One chunk end to end, in a pool thread; its stages are spans of
+        its wells (the first well's ``well`` span causes them)."""
+        parent = wells_open[0].id if wells_open else None
+        with traced(traced_call, f"{seq}/{'+'.join(ids)}", parent):
+            area, stats = _chunk(chunk_np, zcs)
+        for well in wells_open:
+            well.close()
+        return area, stats
+
+    def _chunk(chunk_np: np.ndarray, zcs):
         wm, pruning_chunk = None, [None] * len(zcs)
-        with device_lock, timer.stage("device_stage1"):
+        with on_device("device_stage1"):
             stage1_in = torch.from_numpy(chunk_np).to(dev, non_blocking=False)
             stage1_pre = pre_project
             if detect_well:
@@ -228,26 +264,27 @@ def run_plate_streaming(
             area, preds, f_pk, s_pk = plate_stage1(
                 stage1_in, segmentor._pred_fn, segmentor.patch_size, 2, target, sd_coef, wm,
                 proj_method=proj_method, z_counts=zcs, pre_projected=stage1_pre,
-                tta=segmentor.tta,
+                tta=segmentor.tta, timer=timer,
             )
-            area, f_pk, s_pk = area.cpu().numpy(), f_pk.cpu().numpy(), s_pk.cpu().numpy()
+            with timer.stage("to_host"):
+                area, f_pk, s_pk = area.cpu().numpy(), f_pk.cpu().numpy(), s_pk.cpu().numpy()
+                count("host_copies", 3)
         w = preds.shape[-1]
-        with timer.stage("postprocess"):
-            with timer.stage("post_filter"):
-                f_np = np.unpackbits(f_pk, axis=-1)[..., :w].astype(bool)
-                s_np = np.unpackbits(s_pk, axis=-1)[..., :w].astype(bool)
-                masks = np.stack([
-                    filter_branch_seg_mask(f_np[j].astype(np.uint8), footprint=None,
-                                           precomputed_skeleton=s_np[j]) > 0
-                    for j in range(f_np.shape[0])
-                ])
-                masks_pk = np.packbits(masks, axis=-1)
-            with device_lock, timer.stage("post_stage2"):
-                p384 = plate_stage2(
-                    preds, torch.from_numpy(masks_pk).to(dev), torch.from_numpy(s_pk).to(dev),
-                    dsamp,
-                ).cpu().numpy()
-                del preds
+        with timer.stage("post_filter"):
+            f_np = np.unpackbits(f_pk, axis=-1)[..., :w].astype(bool)
+            s_np = np.unpackbits(s_pk, axis=-1)[..., :w].astype(bool)
+            masks = np.stack([
+                filter_branch_seg_mask(f_np[j].astype(np.uint8), footprint=None,
+                                       precomputed_skeleton=s_np[j]) > 0
+                for j in range(f_np.shape[0])
+            ])
+            masks_pk = np.packbits(masks, axis=-1)
+        with on_device("post_stage2"):
+            p384 = plate_stage2(
+                preds, torch.from_numpy(masks_pk).to(dev), torch.from_numpy(s_pk).to(dev),
+                dsamp,
+            ).cpu().numpy()
+            del preds
         with timer.stage("morse_graphs"):
             stats = [_analyze_well_graph(p384[j], config, dsamp[1], pruning_chunk[j])
                      for j in range(p384.shape[0])]
@@ -258,28 +295,27 @@ def run_plate_streaming(
     max_workers = 8
     threading.Thread(target=producer, daemon=True).start()
     try:
-        with timer.stage("device_pipeline"):
-            with ThreadPoolExecutor(max_workers=max_workers) as pool:
-                futures = []
+        with ThreadPoolExecutor(max_workers=max_workers) as pool:
+            futures = []
+            while True:
+                # backpressure reaches the producer through chunk_q
                 while True:
-                    # backpressure reaches the producer through chunk_q
-                    while True:
-                        for f in futures:  # fail fast on a failed chunk
-                            if f.done() and f.exception() is not None:
-                                raise f.exception()
-                        pending = [f for f in futures if not f.done()]
-                        if len(pending) < max_workers + max(1, prefetch):
-                            break
-                        futures_wait(pending, return_when=FIRST_COMPLETED)
-                    item = chunk_q.get()
-                    if item is None:
+                    for f in futures:  # fail fast on a failed chunk
+                        if f.done() and f.exception() is not None:
+                            raise f.exception()
+                    pending = [f for f in futures if not f.done()]
+                    if len(pending) < max_workers + max(1, prefetch):
                         break
-                    if isinstance(item, BaseException):
-                        raise item
-                    ids, chunk_np, zcs = item
-                    well_ids.extend(ids)
-                    futures.append(pool.submit(chunk_task, chunk_np, zcs))
-                finished = [f.result() for f in futures]
+                    futures_wait(pending, return_when=FIRST_COMPLETED)
+                item = chunk_q.get()
+                if item is None:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                ids, chunk_np, zcs, wells_open = item
+                well_ids.extend(ids)
+                futures.append(pool.submit(chunk_task, chunk_np, zcs, ids, wells_open))
+            finished = [f.result() for f in futures]
     finally:
         stop.set()
 
@@ -472,29 +508,30 @@ def main(args=None, argv=None, device: DeviceLike = None):
                   f"{_MIXED_SIZE_HELP}", flush=True)
             sys.exit(1)
     stripe_error = None
-    try:
-        if plate_zhw is not None:
-            results = run_plate_streaming(
-                _well_loader(my_paths), len(well_ids), plate_zhw[:3], segmentor, config,
-                plate_dtype=plate_zhw[3], **common,
-            )
-        else:
-            (h, w), = hw_set
-            max_z = max(shape[0] for shape in shapes)
-            dtype = np.result_type(*[np.dtype(d) for part in parts for _, d in part])
-            plate = np.zeros((len(stacks), max_z, h, w), dtype)
-            for i, s in enumerate(stacks):
-                plate[i, : s.shape[0]] = s
-            results = run_plate(plate, well_ids, segmentor, config,
-                                z_counts=[s.shape[0] for s in stacks], **common)
-    except Exception as e:  # a well that does not decode, ...
-        if not is_multiprocess():
-            raise
-        # fail together after the row gather: raising alone would leave the
-        # peers waiting in it
-        traceback.print_exc()
-        stripe_error = f"process {process_index()}: {e}"
-        results = {k: [] for k in RESULT_KEYS}
+    with maybe_profile("plate"):  # a trace under $TMAT_TORCH_PROFILE_DIR/plate, if set
+        try:
+            if plate_zhw is not None:
+                results = run_plate_streaming(
+                    _well_loader(my_paths), len(well_ids), plate_zhw[:3], segmentor, config,
+                    plate_dtype=plate_zhw[3], **common,
+                )
+            else:
+                (h, w), = hw_set
+                max_z = max(shape[0] for shape in shapes)
+                dtype = np.result_type(*[np.dtype(d) for part in parts for _, d in part])
+                plate = np.zeros((len(stacks), max_z, h, w), dtype)
+                for i, s in enumerate(stacks):
+                    plate[i, : s.shape[0]] = s
+                results = run_plate(plate, well_ids, segmentor, config,
+                                    z_counts=[s.shape[0] for s in stacks], **common)
+        except Exception as e:  # a well that does not decode, ...
+            if not is_multiprocess():
+                raise
+            # fail together after the row gather: raising alone would leave the
+            # peers waiting in it
+            traceback.print_exc()
+            stripe_error = f"process {process_index()}: {e}"
+            results = {k: [] for k in RESULT_KEYS}
     elapsed = time.perf_counter() - start
     timer = results.pop("_timer", None)
     if timer is not None:
