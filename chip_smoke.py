@@ -5,9 +5,10 @@
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device: the card's name, count and power limit (no CUDA device: exit 1);
-2. build: the three CUDA kernels (the down block, focus stacking and the
+2. build: the four CUDA kernels (the down block, focus stacking, the
    int8 conv, the latter also as its mma.sync form alone, which phase quant
-   holds and times against the warpgroup form) and the three host
+   holds and times against the warpgroup form, and the Lanczos-4 resize of
+   the inv_depth ingest) and the three host
    libraries, from the sources in this checkout, all compilers started
    together, into an empty build cache (``TMAT_TORCH_BUILD_DIR``, a
    temporary directory);
@@ -44,9 +45,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
 11. inv_depth: the shipped invasion ensemble (3 of 5 members ranked by
    history, 256^2 input, bf16) through ``compute_inv_depth.predict_rows`` on
    eight uint8 8 x 1024^2 stacks, warmed once and run twice (stacks/sec,
-   then a stage split by the host clock: ``host_resize``, ``dispatch``,
-   ``fetch_wait``; the stages no longer synchronise, so the card's time
-   comes from a trace, not from them), the
+   one launch of the Lanczos-4 resize kernel a stack, then a stage split
+   by the host clock: ``host_resize``, ``dispatch``, ``fetch_wait``; the
+   stages do not synchronise, so the card's time comes from a trace, not
+   from them), the resize kernel at that shape against its plain version
+   on the card, timed (CUDA events) beside its bound, the plain version on
+   the card and the host resize it replaced (``host_resize``) on this
+   host, and the pageable upload of one stack, the
    seed-5 quality slices (not invaded, invaded), bf16 against f32 on the
    card, the card's f32 against the CPU's, the prep tail on the card
    against the CPU, and the ensemble forward timed with CUDA events beside
@@ -59,7 +64,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    run, from the kernels and copies in the trace, and the run's time
    without the profiler;
 14. warmup: ``python -m tmat_torch.cli warmup`` in a fresh process on an
-   empty build cache, then in a second fresh process: 6 libraries built,
+   empty build cache, then in a second fresh process: 7 libraries built,
    then 0, and the same outputs; both processes' wall times;
 15. distributed: ``compute_inv_depth`` (the eight stacks of phase 11),
    ``compute_branches`` on eight 2-D images (``--no-vis``) and
@@ -128,7 +133,9 @@ the kernels line, and so do the trained segmentor's of phase 16 and the
 quantized segmentor's of phase 17 (whose int8 launches are the int8
 conv's); phases 11 and 12, the inv_depth runs of 15 and the training steps
 launch neither kernel (the JAX package trains through plain Flax layers,
-with no custom gradient). The last line is {"ok": true, "device": {...}}.
+with no custom gradient); the kernels line counts the resize kernel's
+launches of phases 11, 12 and 16 (one a stack; phase 11's timing apart).
+The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -234,13 +241,14 @@ def block_work(b: int, h: int, c: int, f: int, dtype: torch.dtype) -> dict:
 def phase_build():
     from tmat_torch import build
 
-    from tmat_torch.ops import focus_stack, int8_conv
+    from tmat_torch.ops import focus_stack, int8_conv, resize_lanczos4
 
     # the int8 conv also as the mma.sync form alone: phase quant measures the
     # forms against each other
     jobs = {"down_block": lambda: build.cuda_library("down_block"),
             "focus_stack": focus_stack.library_path, "int8_conv": int8_conv.library_path,
-            "int8_conv_mma_sync": lambda: int8_conv.library_path(("TMAT_INT8_MMA_SYNC_ONLY",))}
+            "int8_conv_mma_sync": lambda: int8_conv.library_path(("TMAT_INT8_MMA_SYNC_ONLY",)),
+            "resize_lanczos4": resize_lanczos4.library_path}
     for name in ("labeling", "dmtgraph", "morse"):
         jobs[name] = lambda n=name: build.host_library(n)
     t0 = time.perf_counter()
@@ -250,7 +258,7 @@ def phase_build():
     seconds = time.perf_counter() - t0
     if build.builds != len(jobs):
         raise AssertionError(f"{build.builds} libraries built into an empty cache, not {len(jobs)}")
-    ptxas = [ln.strip() for name in ("down_block", "focus_stack", "int8_conv")
+    ptxas = [ln.strip() for name in ("down_block", "focus_stack", "int8_conv", "resize_lanczos4")
              for ln in build.logs.get(name, "").splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit("build", seconds=round(seconds, 3), built=build.builds, libraries=paths, ptxas=ptxas)
@@ -860,6 +868,22 @@ def ensemble_work(members, x: torch.Tensor) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
+def resize_work(z: int, H: int, W: int, h: int, w: int, itemsize: int = 1) -> dict:
+    """What one Lanczos-4 resize of a (z, H, W) stack to (z, h, w) must do
+    and move, and the least time the card could take for it: the banded
+    multiply-adds (two operations each, f32 on the CUDA cores) of the
+    vertical pass over every input column and of the horizontal pass;
+    bytes, the stack read once and the result written once."""
+    from tmat_torch.ops.resize_lanczos4 import band
+
+    taps = lambda n_in, n_out: int(band(n_in, n_out).count.sum())  # noqa: E731
+    flops = 2 * z * (taps(H, h) * W + h * taps(W, w))
+    nbytes = z * (H * W + h * w) * itemsize
+    ops_ms, bytes_ms = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"flops": flops, "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
 def phase_inv_depth(device):
     """The invasion-depth tool's core on the shipped ensemble. Returns what
     the cli phase holds the CLI against."""
@@ -867,7 +891,7 @@ def phase_inv_depth(device):
     from tmat_torch.models.preprocess import host_resize, prep_tail
     from tmat_torch.models.resnet import ensemble_forward
     from tmat_torch.models.synthetic import synth_invasion_image
-    from tmat_torch.ops import down_block as db, focus_stack as fs
+    from tmat_torch.ops import down_block as db, focus_stack as fs, resize_lanczos4 as rl
     from tmat_torch.tools import compute_inv_depth as inv
 
     root = Path(__file__).resolve().parent
@@ -890,6 +914,7 @@ def phase_inv_depth(device):
     ens32 = inv.load_ensemble(ckpts, shape, last_layer, torch.float32, device)
     ens_cpu = inv.load_ensemble(ckpts, shape, last_layer, torch.float32, "cpu")
 
+    resize_at_start = rl.launches
     # quality: the seed-5 slices of the tool's test, not invaded then invaded
     q_rng = np.random.RandomState(5)
     quality = np.stack([synth_invasion_image(q_rng, 256, invaded=False),
@@ -909,11 +934,14 @@ def phase_inv_depth(device):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     runs = []
+    resize_before = rl.launches
     for _ in range(2):
         t0 = time.perf_counter()
         rows = inv.predict_rows(items, ens, hw, thresh)
         runs.append((rows, time.perf_counter() - t0))
     peak = torch.cuda.max_memory_allocated()
+    if rl.launches - resize_before != 2 * len(stacks):
+        raise AssertionError(f"{rl.launches - resize_before} resize launches for {2 * len(stacks)} stacks")
     timer = StageTimer()
     timed_rows = inv.predict_rows(items, ens, hw, thresh, timer)
     if runs[0][0] != runs[1][0] or timed_rows != runs[0][0]:
@@ -944,6 +972,36 @@ def phase_inv_depth(device):
 
     x = prep_tail(torch.from_numpy(resized).to(device))
     forward_ms = cuda_ms(lambda: ensemble_forward(ens, x), 20)
+
+    # the resize kernel at the cell's shape: against its plain version on the
+    # card, then timed over a pool of stacks larger than L2, beside its bound,
+    # the plain version, the host resize it replaced and the upload before it
+    path_launches = rl.launches - resize_at_start
+    raw = torch.from_numpy(stacks[0]).to(device)
+    k_out = rl.resize_lanczos4(raw, hw).cpu().numpy().astype(np.int16)
+    p_out = rl.resize_lanczos4_plain(raw, hw).cpu().numpy().astype(np.int16)
+    resize_err = int(np.abs(k_out - p_out).max())
+    resize_mismatched = int((k_out != p_out).sum())
+    if resize_err > 1 or resize_mismatched > 1e-4 * k_out.size:
+        raise AssertionError(f"the resize kernel differs from its plain version by up to {resize_err} "
+                             f"at {resize_mismatched} of {k_out.size} pixels")
+    pool = stack_pool(np.random.RandomState(3), 1, device)
+    resize_ms = cuda_ms(lambda: rl.resize_lanczos4(pool()[0], hw), 50)
+    resize_plain_ms = cuda_ms(lambda: rl.resize_lanczos4_plain(pool()[0], hw), 10)
+    host_times, upload_times = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        host_resize(stacks[0], hw)
+        host_times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.from_numpy(stacks[1]).to(device)
+        upload_times.append((time.perf_counter() - t0) * 1e3)
+    resize = {"shape": list(stacks.shape[1:]), "out": list(hw), "path_launches": path_launches, "ms": resize_ms,
+              "plain_ms": resize_plain_ms, "host_resize_ms": min(host_times),
+              "upload_ms": min(upload_times), "max_abs_err": resize_err,
+              "mismatched_pixels": resize_mismatched, "plan": list(rl.plan(*stacks.shape[2:], *hw)),
+              **resize_work(*stacks.shape[1:], *hw)}
     work = ensemble_work(ens, x)
     if (db.launches, fs.launches) != launches_before:
         raise AssertionError("the inv_depth path launched a kernel of the plate path")
@@ -957,10 +1015,10 @@ def phase_inv_depth(device):
          forward_ms_per_stack=forward_ms, **{f"forward_{k}": v for k, v in work.items()},
          max_memory_allocated=peak, quality_rows=q_rows, bf16_vs_f32_max_abs=bf16_err,
          bf16_vs_f32_member_max_abs=member_err, predictions_near_threshold=int((~far).sum()),
-         card_f32_vs_cpu_max_abs=cpu_err, prep_tail_card_vs_cpu_max_abs=tail_err,
+         card_f32_vs_cpu_max_abs=cpu_err, prep_tail_card_vs_cpu_max_abs=tail_err, resize=resize,
          invaded_share=float(np.mean([r[inv.PRED_COL] for r in runs[0][0]])),
          prob_range=[min(probs), max(probs)])
-    return stacks, ens, hw, thresh
+    return stacks, ens, hw, thresh, resize
 
 
 def _nd2_chunk(name: bytes, payload: bytes) -> bytes:
@@ -1072,7 +1130,7 @@ def _empty_base(path: Path) -> Path:
 
 def phase_warmup(tmp: Path):
     """``tmat-torch warmup`` in a fresh process on an empty build cache,
-    then in a second fresh process: 6 libraries built, then none, and the
+    then in a second fresh process: 7 libraries built, then none, and the
     same outputs."""
     import re
 
@@ -1093,8 +1151,8 @@ def phase_warmup(tmp: Path):
                  re.findall(r"(\w+) warmed in ([\d.]+)s \(outputs sha256 (\w+)\)", proc.stdout)}
         runs.append({"seconds": seconds, "built": built, "build_s": build_s, "tools": tools})
     (first, second) = runs
-    if first["built"] != [6, 6] or second["built"] != [0, 6]:
-        raise AssertionError(f"warmup built {first['built']} then {second['built']} libraries, not [6, 6], [0, 6]")
+    if first["built"] != [7, 7] or second["built"] != [0, 7]:
+        raise AssertionError(f"warmup built {first['built']} then {second['built']} libraries, not [7, 7], [0, 7]")
     if set(first["tools"]) != {"zproj", "area", "branches", "inv_depth", "plate"}:
         raise AssertionError(f"warmup ran {sorted(first['tools'])}")
     digests = [{k: d for k, (_, d) in run["tools"].items()} for run in runs]
@@ -1165,7 +1223,7 @@ def phase_distributed(inv_stacks, plate, images, tmp: Path):
     out = {"host_cores": os.cpu_count(), "host_cores_usable": len(os.sched_getaffinity(0)),
            "torch_threads": torch.get_num_threads(),
            "blas": {k: os.environ.get(k) for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")},
-           "blas_config": _blas_config(), "inv_depth_host_resize": resize_spread()}
+           "blas_config": _blas_config()}
     launches = {}
     for name, (module, (in_dir, warm_dir), tail, csvs) in cases.items():
         n_items = len(list(in_dir.iterdir()))
@@ -1199,37 +1257,6 @@ def phase_distributed(inv_stacks, plate, images, tmp: Path):
     emit("distributed", **out)
     return {name: sum(c["down_block"] for c in counts.values()) for name, counts in launches.items()
             if name != "inv_depth"}
-
-
-_RESIZE_CHILD = """
-import time, numpy as np
-from tmat_torch.models.preprocess import host_resize
-x = np.random.RandomState(0).randint(0, 256, (8, 1024, 1024)).astype(np.uint8)
-host_resize(x, (256, 256))
-times = []
-for _ in range(5):
-    t0 = time.perf_counter()
-    host_resize(x, (256, 256))
-    times.append(time.perf_counter() - t0)
-print("RESIZE_MS", min(times) * 1e3)
-"""
-
-
-def resize_spread() -> dict:
-    """The inv_depth host resize of one uint8 (8, 1024, 1024) stack, best of
-    five, in fresh processes: alone with numpy's default BLAS threads, alone
-    with one BLAS thread, and two at once with the default threads."""
-
-    def run(n: int, **env):
-        procs = [subprocess.Popen([sys.executable, "-c", _RESIZE_CHILD], env=_child_env(**env),
-                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for _ in range(n)]
-        outs = [p.communicate(timeout=300) for p in procs]
-        if any(p.returncode for p in procs):
-            raise AssertionError(f"a resize probe failed: {[err[-2000:] for _, err in outs]}")
-        return [float(out.split("RESIZE_MS", 1)[1]) for out, _ in outs]
-
-    return {"default_threads_ms": run(1)[0], "one_blas_thread_ms": run(1, OPENBLAS_NUM_THREADS=1)[0],
-            "two_processes_default_threads_ms": run(2)}
 
 
 def _blas_config() -> str:
@@ -2081,8 +2108,12 @@ def run_phases(args, tmp: Path, device, kind: str, smi: str) -> int:
         seg, [well.max(axis=0) for well in synthetic_plate(args.wells, rng)],
         [project(stack, "fs", device) for stack in fs_plate], fs_plate, device)
 
-    inv_stacks, ens, hw, thresh = phase_inv_depth(device)
+    from tmat_torch.ops import resize_lanczos4 as rl
+
+    inv_stacks, ens, hw, thresh, resize = phase_inv_depth(device)
+    cli_resize = rl.launches
     phase_cli(inv_stacks, ens, hw, thresh, device)
+    cli_resize = rl.launches - cli_resize
     del ens
     torch.cuda.empty_cache()
 
@@ -2092,7 +2123,9 @@ def run_phases(args, tmp: Path, device, kind: str, smi: str) -> int:
     dist_launches = phase_distributed(
         inv_stacks, synthetic_plate(args.wells, profile_rng),
         [well.max(axis=0) for well in synthetic_plate(args.wells, profile_rng)], tmp)
+    train_resize = rl.launches
     train_launches = phase_train(tmp, device)
+    train_resize = rl.launches - train_resize
     quant_run = phase_quant(rng, unet, plate_run, device, tmp)
     phase_package(fs_plate[:4], device, tmp)
     phase_rng(device, smi)
@@ -2165,6 +2198,23 @@ def run_phases(args, tmp: Path, device, kind: str, smi: str) -> int:
         "convs": [{"tag": t["tag"], "form": t["form"], "ms": t["ms"], "bound_ms": t["bound_ms"],
                    "int_mm_ms": t["int_mm_ms"], "cudnn_bf16_ms": t["cudnn_bf16_ms"],
                    "unfused_path_ms": t["unfused_path_ms"]} for t in quant_run["timings"]],
+    }, {
+        "name": "resize_lanczos4",
+        "route": "cuda",
+        "source": "tmat_torch/csrc/resize_lanczos4.cu",
+        # no Pallas kernel: the JAX package resizes in numpy on the host
+        "replaces": "tmat_tpu/models/preprocess.py:71",
+        "launches": resize["path_launches"] + cli_resize + train_resize,
+        "launches_by_path": {"inv_depth": resize["path_launches"], "cli": cli_resize, "train": train_resize},
+        "max_abs_err": resize["max_abs_err"],
+        "mismatched_pixels": resize["mismatched_pixels"],
+        # one uint8 (8, 1024, 1024) stack to 256^2, as inv_depth launches it
+        "ms": resize["ms"],
+        "plain_ms": resize["plain_ms"],
+        "host_resize_ms": resize["host_resize_ms"],
+        "bound_ms": resize["bound_ms"],
+        "bound_by": resize["bound_by"],
+        "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

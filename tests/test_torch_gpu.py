@@ -12,8 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_resize_lanczos4 import SIZES as RESIZE_SIZES
+from test_torch_resize_lanczos4 import TOPS, assert_resized_close, random_stack, size_id
 from tmat_torch.models.unet import UNetXception
 from tmat_torch.ops import down_block as db, focus_stack as fs
+from tmat_torch.ops import resize_lanczos4 as rl
 from tmat_torch.ops import zproj
 
 # (batch, H, C, F): the test suite's block shapes, odd channel counts, and
@@ -486,6 +489,81 @@ def test_predict_stack_on_the_card(cuda):
         out = inv.predict_stack(stack, card, (64, 64))
         assert out.dtype == np.float32 and out.shape == (1, 1 if stack.ndim == 2 else len(stack), 1)
         np.testing.assert_allclose(out, inv.predict_stack(stack, host, (64, 64)), atol=1e-4, rtol=0)
+
+
+# the CPU tests' sizes, and a downsample whose tiles load their rows in chunks
+RESIZE_CASES = RESIZE_SIZES + [((1, 2048, 300), (37, 256))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RESIZE_CASES, ids=size_id)
+@pytest.mark.parametrize("dtype", ["uint8", "uint16", "float32"])
+def test_resize_kernel_matches_plain(cuda, dtype, case):
+    """The Lanczos-4 kernel against its plain version on the card, within
+    ``tests/test_torch_resize_lanczos4.py``'s tolerances, one launch a call."""
+    shape_in, shape = case
+    stack = random_stack(dtype, shape_in)
+    x = torch.from_numpy(stack).to(cuda)
+    before = rl.launches
+    out = rl.resize_lanczos4(x, shape)
+    torch.cuda.synchronize()
+    assert rl.launches == before + 1 and out.device == x.device
+    assert_resized_close(out.cpu().numpy(), rl.resize_lanczos4_plain(x, shape).cpu().numpy(), stack, shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["uint8", "uint16", "float32"])
+@pytest.mark.parametrize("kind", ["constant_rows", "full_range"])
+def test_resize_kernel_at_the_ends_of_the_range(cuda, dtype, kind):
+    """Rows each of one value from 0 to the top of the range, and squares at
+    0 and at the top, whose rings the integer outputs clip on both sides."""
+    top = TOPS[dtype]
+    if kind == "constant_rows":
+        stack = np.repeat(np.linspace(0, top, 200)[:, None], 180, axis=1).astype(dtype)[None]
+    else:
+        rr, cc = np.mgrid[0:200, 0:180]
+        stack = np.where(((rr // 10) + (cc // 10)) % 2 == 0, top, 0).astype(dtype)[None]
+    out = rl.resize_lanczos4(torch.from_numpy(stack).to(cuda), (64, 48)).cpu().numpy()
+    assert_resized_close(out, rl.resize_lanczos4_plain(torch.from_numpy(stack), (64, 48)).numpy(),
+                         stack, (64, 48))
+    if kind == "full_range" and dtype != "float32":
+        assert out.min() == 0 and out.max() == top
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [(7, 5, 13), (3, 1, 1), (1, 32, 4), (16, 32, 200)])
+def test_resize_kernel_takes_other_tiles(cuda, monkeypatch, tile):
+    """Tiles that ``plan`` would not pick for this size: ragged edges on
+    both axes, a column a tile, one input row a load, more rows than used."""
+    th, tw, rc = tile
+    stack = random_stack("uint16", (2, 300, 200), seed=1)
+    monkeypatch.setattr(rl, "plan", lambda *a: (th, tw, rc, rl._span(rl.band(200, 50), tw)))
+    out = rl.resize_lanczos4(torch.from_numpy(stack).to(cuda), (40, 50)).cpu().numpy()
+    assert_resized_close(out, rl.resize_lanczos4_plain(torch.from_numpy(stack), (40, 50)).numpy(),
+                         stack, (40, 50))
+
+
+@pytest.mark.gpu
+def test_resize_wrapper_refuses_on_the_card(cuda):
+    stack = torch.zeros((2, 64, 64), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="not contiguous"):
+        rl.resize_lanczos4(stack[:, :, ::2], (16, 16))
+    with pytest.raises(TypeError, match="uint8, uint16 or float32"):
+        rl.resize_lanczos4(stack.to(torch.int16), (16, 16))
+    with pytest.raises(ValueError, match="at most 65535 slices"):
+        rl.resize_lanczos4(torch.zeros((65536, 2, 2), dtype=torch.uint8, device=cuda), (1, 1))
+
+
+@pytest.mark.gpu
+def test_predict_rows_launches_the_resize_kernel_once_a_stack(cuda):
+    from tmat_torch.tools import compute_inv_depth as inv
+
+    rng = np.random.RandomState(8)
+    stacks = [(f"S{i}", (rng.rand(3, 100, 90) * 255).astype(np.uint8)) for i in range(4)]
+    card = _shipped_member(torch.bfloat16, cuda, size=64)
+    before = rl.launches
+    rows = inv.predict_rows(stacks, card, (64, 64), 0.5)
+    assert rl.launches == before + len(stacks) and len(rows) == 12
 
 
 def _grads_close(card, cpu):

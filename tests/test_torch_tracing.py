@@ -209,8 +209,29 @@ def test_predict_rows_spans_and_no_synchronise(monkeypatch, ensemble, timer):
         mine = [s for s in spans if s.item == sid]
         assert sorted(s.name for s in mine) == ["dispatch", "fetch_wait", "host_resize"]
         assert all(s.parent is None and s.thread == threading.get_native_id() for s in mine)
+        assert all(s.counts is None for s in mine)  # the CPU resize launches no kernel
     if given is not None:
         assert given.counts == {"host_resize": 3, "dispatch": 3, "fetch_wait": 3}
+
+
+@pytest.mark.gpu
+def test_predict_rows_counts_the_resize_launch_on_the_card(ensemble):
+    """On the card each stack's ``host_resize`` span holds its one launch of
+    the resize kernel, and no other span counts one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the resize kernel has no CPU or interpret mode")
+    from tmat_torch.ops import resize_lanczos4 as rl
+
+    _, stacks = ensemble
+    card = [build_resnet50_tl(1, (32, 32, 3), "conv2_block3_out", seed=1, device="cuda")]
+    before = rl.launches
+    with _cpu_profile():
+        rows = inv.predict_rows(stacks, card, (32, 32), 0.5)
+    assert rl.launches == before + len(stacks) and len(rows) == sum(len(s) for _, s in stacks)
+    spans = recorded_spans()
+    for sid, _ in stacks:
+        mine = {s.name: s.counts for s in spans if s.item == sid}
+        assert mine == {"host_resize": {"resize_launches": 1}, "dispatch": None, "fetch_wait": None}
 
 
 def test_the_span_clock_is_perf_counter():

@@ -9,19 +9,25 @@ Invasion Prediction (0=no 1=yes)). Under torchrun each process predicts a
 round-robin stripe of the stacks and the primary writes the CSV from
 every process's rows (``parallel/distributed.py``).
 
-Each stack's slices are resized on the host (``models/preprocess.py::
-host_resize``) and the rest runs on the device: the prep tail and the
-members' forwards, one after another on one stream. At most
-``MAX_IN_FLIGHT`` stacks are queued on the device before the oldest is
-fetched, so the host resizes the next stacks while the device works
-(``predict_rows``). The file-free core is ``predict_stack``.
+Each raw stack is uploaded once and everything runs on the device: the
+Lanczos-4 resize (``ops/resize_lanczos4.py``, a CUDA kernel on the card,
+its plain version on the CPU; the function of ``models/preprocess.py::
+host_resize``), the prep tail and the members' forwards, one after another
+on one stream. At most ``MAX_IN_FLIGHT`` stacks are queued on the device
+before the oldest is fetched, so the host loads and dispatches the next
+stacks while the device works (``predict_rows``). The file-free core is
+``predict_stack``.
 
-Stages, all by the host clock (none waits for the card): ``host_resize``,
-``dispatch`` (the upload, the prep tail and the members' forwards as the
-host enqueues them) and ``fetch_wait`` (the host blocked in the copy of a
-stack's probabilities back). While a ``torch.profiler`` records on the
-thread that calls ``predict_rows``, they are also spans of their stack
-(``core/profiling.py``).
+Stages, all by the host clock (none calls a synchronise): ``host_resize``,
+the host's share of the resize (the upload of the raw stack, a blocking
+copy that starts once the work queued before it is done, and the kernel's
+launch; on the CPU, the whole resize), ``dispatch`` (the prep
+tail and the members' forwards as the host enqueues them) and
+``fetch_wait`` (the host blocked in the copy of a stack's probabilities
+back). While a ``torch.profiler`` records on the thread that calls
+``predict_rows``, they are also spans of their stack
+(``core/profiling.py``); a ``host_resize`` span on the card counts the
+kernel's launch (``resize_launches``).
 
 Usage:
     python -m tmat_torch.tools.compute_inv_depth IN_DIR OUT_DIR [-c CONFIG]
@@ -45,14 +51,18 @@ from tmat_torch.core.log import SFM, section_footer, section_header
 from tmat_torch.core.profiling import StageTimer, maybe_profile, profiler_active, traced
 from tmat_torch.device import DeviceLike, default_dtype, resolve_device
 from tmat_torch.models.params_io import from_flax_resnet_variables, load_variables
-from tmat_torch.models.preprocess import host_resize, prep_tail
+# host_resize is no longer called here: the perfbench inv_depth cell still
+# replaces this module's name with its own timed wrapper
+from tmat_torch.models.preprocess import host_resize, prep_tail  # noqa: F401
 from tmat_torch.models.resnet import ResNet50TL, build_resnet50_tl, ensemble_forward, load_member
+from tmat_torch.ops.resize_lanczos4 import resize_lanczos4
 from tmat_torch.parallel.distributed import (
     is_multiprocess, is_primary, maybe_initialize_from_env, merge_striped_rows, process_index, stripe)
 from tmat_torch.tools import args as su
 
 DEFAULT_CONFIG_NAME = "default_invasion_depth_computation.json"
 MAX_IN_FLIGHT = 8
+RESIZE_DTYPES = (np.uint8, np.uint16, np.float32)  # the resize kernel's
 ID_COL = "Z Slice ID"
 PROB_COL = "Invasion Probability"
 PRED_COL = "Invasion Prediction (0=no 1=yes)"
@@ -88,6 +98,22 @@ def load_ensemble(checkpoints: Sequence[Path], img_shape: Tuple[int, int, int], 
     return members
 
 
+def resize_stack(stack: np.ndarray, img_hw: Tuple[int, int], dev: torch.device) -> torch.Tensor:
+    """``host_resize``'s (Z, h, w) slices of a (Z, H, W) or (H, W) stack, on
+    ``dev``: the raw stack uploaded once, pageable (pinning a fresh buffer
+    for each stack costs more than the copy), and resized there. A dtype
+    the resize does not take goes up as float32, as the host resize
+    computes it; an integer one is then rounded and clipped to its range."""
+    arr = np.ascontiguousarray(stack)
+    if arr.dtype in RESIZE_DTYPES:
+        return resize_lanczos4(torch.from_numpy(arr).to(dev), img_hw)
+    resized = resize_lanczos4(torch.from_numpy(arr.astype(np.float32)).to(dev), img_hw)
+    if np.issubdtype(arr.dtype, np.integer):
+        info = np.iinfo(arr.dtype)
+        resized = resized.round().clamp_(info.min, info.max)
+    return resized
+
+
 def dispatch_stack(stack: np.ndarray, ensemble: Sequence[ResNet50TL], img_hw: Tuple[int, int],
                    timer: Optional[StageTimer] = None) -> torch.Tensor:
     """Queue one (Z, H, W) or (H, W) stack on the ensemble's device:
@@ -95,11 +121,9 @@ def dispatch_stack(stack: np.ndarray, ensemble: Sequence[ResNet50TL], img_hw: Tu
     dev = next(ensemble[0].parameters()).device
     timer = timer or StageTimer()
     with timer.stage("host_resize"):
-        resized = host_resize(stack, img_hw)
+        resized = resize_stack(stack, img_hw, dev)
     with timer.stage("dispatch"):
-        # pageable: pinning a fresh buffer for each stack costs more than the copy
-        x = prep_tail(torch.from_numpy(resized).to(dev))
-        return ensemble_forward(ensemble, x)
+        return ensemble_forward(ensemble, prep_tail(resized))
 
 
 def predict_stack(stack: np.ndarray, ensemble: Sequence[ResNet50TL],
@@ -124,7 +148,7 @@ def predict_rows(stacks: Iterable[Tuple[str, np.ndarray]], ensemble: Sequence[Re
                  img_hw: Tuple[int, int], cls_thresh: float,
                  timer: Optional[StageTimer] = None) -> List[Dict]:
     """The CSV rows of each ``(id, stack)`` in turn. At most MAX_IN_FLIGHT
-    stacks wait on the device: the host resizes the next ones meanwhile."""
+    stacks wait on the device: the host dispatches the next ones meanwhile."""
     rows: List[Dict] = []
     pending: deque = deque()
     timer = timer or StageTimer()

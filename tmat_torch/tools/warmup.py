@@ -2,7 +2,7 @@
 
 Counterpart of ``tmat_tpu/tools/warmup.py``. The port compiles no program
 at run time, so its cold start is the build of its native libraries
-(``build.py``): the three CUDA kernels and the three host engines, each
+(``build.py``): the four CUDA kernels and the three host engines, each
 kept in the build cache under a key of its source, command line and
 toolchain. This tool builds them all (compilers started together), so a
 later process finds every library in the cache and builds none; then it
@@ -61,15 +61,16 @@ def _parse(argv=None) -> argparse.Namespace:
 
 def build_libraries(device: torch.device) -> Dict[str, Path]:
     """Every native library that ``device``'s paths load, all compilers
-    started together: the host engines, and on CUDA the three kernels (the
+    started together: the host engines, and on CUDA the four kernels (the
     int8 conv of the opt-in quantized segmentor among them)."""
-    from tmat_torch.ops import focus_stack, int8_conv
+    from tmat_torch.ops import focus_stack, int8_conv, resize_lanczos4
 
     jobs = {name: (lambda n=name: build.host_library(n)) for name in build.HOST_LIBRARIES}
     if device.type == "cuda":
         jobs["down_block"] = lambda: build.cuda_library("down_block")
         jobs["focus_stack"] = focus_stack.library_path
         jobs["int8_conv"] = int8_conv.library_path
+        jobs["resize_lanczos4"] = resize_lanczos4.library_path
     with ThreadPoolExecutor(len(jobs)) as pool:
         futures = {name: pool.submit(job) for name, job in jobs.items()}
         return {name: f.result() for name, f in futures.items()}
