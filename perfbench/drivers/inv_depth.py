@@ -54,9 +54,6 @@ class Driver:
         self.stacks = h.cell.generator.make(h.seed, t, h.device)
         self.flops_per_stack = t["z"] * len(self.ens) * resnet50_flops(self.hw[0], c["last_layer"])
 
-        # the harness's host-clock span around the resize that dispatch_stack calls
-        self._resize = inv.host_resize
-        inv.host_resize = self._span_resize
         # each member's probabilities of the stacks drawn for the check
         self.keep = set()
         self.handed = 0
@@ -68,10 +65,6 @@ class Driver:
         warm = [(f"warm{i}", self.stacks[i % len(self.stacks)]) for i in range(t["warm_stacks"])]
         inv.predict_rows(warm, self.ens, self.hw, c["cls_thresh"], h.new_timer())
         h.sync()
-
-    def _span_resize(self, images, img_hw):
-        with self.h.timer.stage("host_resize"):
-            return self._resize(images, img_hw)
 
     def _hook(self, k: int):
         def hook(module, inputs, out):
@@ -117,7 +110,6 @@ class Driver:
     def release(self) -> None:
         for hk in self.hooks:
             hk.remove()
-        self.inv.host_resize = self._resize
         self.ens = None
 
     def check(self) -> Dict[str, float]:

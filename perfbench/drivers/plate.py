@@ -57,6 +57,7 @@ class Driver:
         self.item_s: List[float] = []
         self.results: List[Dict] = []
         self.spans: List[str] = []  # the kind of each span of the traced part, in order
+        self.kept: Dict[int, Dict] = {}  # what a driver keeps of the program's plates for the check
 
     # ------------------------------------------------------------ set-up
 
@@ -205,7 +206,12 @@ class Driver:
           the relative gap of the branch count and of the total length
           from the reference's float64 host tail run on the program's own
           patch outputs (the tail follows the program from its state);
-        - ``rows_missing``.
+        - ``rows_missing``;
+        - whatever further ``gaps`` the reference gives a well (the widest),
+          from what the driver ``kept`` of the program's plate.
+
+        The reference gets each well's stack trimmed to the traffic's
+        ``run_plate.z_counts``, where it gives them.
 
         ``tail_gap``, the widest of those gaps over the wells, is reported
         and compared with nothing: one well's count flips by a branch under
@@ -221,6 +227,7 @@ class Driver:
         ref.no_tf32()
         model = ref.UNetRef(read_flax(h.root / c["checkpoint"]), c["filter_counts"]).to_device(h.device)
         seen = {k: [] for k in ("prob", "prob_mean", "area", "count", "length")}
+        depths = t.get("run_plate", {}).get("z_counts")  # each well's depth, from the traffic
         missing = 0
         for p in self.check_at:
             plate = self.plates[p % len(self.plates)]
@@ -234,7 +241,8 @@ class Driver:
                 if not all(np.isfinite(row[k]) for k in ROW_KEYS):
                     missing += 1
                     continue
-                want = ref.well_row(plate[w], model, c, h.device)
+                stack = plate[w][: depths[w]] if depths else plate[w]
+                want = ref.well_row(stack, model, c, t, h.device, self.kept.get(p))
                 probs = want["probs"]
                 # the program's forward of this well: the one nearest the reference's
                 diffs = [(o.to(probs.device) - probs).abs() for o in outs]
@@ -243,9 +251,11 @@ class Driver:
                 seen["prob_mean"].append(float(diffs[k].mean()))
                 lo, hi = want["area_band"]
                 if h.control:
-                    row["area_pct"] = ref.control_area(plate[w], h.device)
+                    row["area_pct"] = ref.control_area(want)
                 seen["area"].append(max(0.0, lo - row["area_pct"], row["area_pct"] - hi))
-                n, total, _ = ref.tail_row(outs[k].to(h.device), want["target"], c, t, low)
+                n, total, _ = ref.tail_row(outs[k].to(h.device), want, c, t, low)
+                for key, value in want.get("gaps", {}).items():
+                    seen.setdefault(key, []).append(value)
                 seen["count"].append(abs(row["total_branches"] - n) / max(n, 1))
                 seen["length"].append(abs(row["total_branch_length_um"] - total) / max(total, 1.0))
                 h.log(f"well {p}/{wid}: prob gap {seen['prob'][-1]:.5f} area gap {seen['area'][-1]:.3g} "
@@ -262,4 +272,6 @@ class Driver:
         for k in ("count", "length"):
             out[f"tail_{k}_gap"] = float(np.mean(seen[k])) if seen[k] else float("nan")
         out["tail_gap"] = max(map(max, seen["count"], seen["length"]), default=float("nan"))
+        for key in set(seen) - {"prob", "prob_mean", "area", "count", "length"}:
+            out[key] = max(seen[key])
         return out

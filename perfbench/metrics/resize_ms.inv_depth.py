@@ -1,6 +1,7 @@
 """resize_ms.inv_depth: the program's ``host_resize`` span in
-``tools/compute_inv_depth.py``, the Lanczos-4 resize of a stack on the host
-(``models/preprocess.py::host_resize``), ms a traced stack."""
+``tools/compute_inv_depth.py``, the Lanczos-4 resize of a stack (the raw
+stack's upload and the ``ops/resize_lanczos4.py`` kernel's launch), ms a
+traced stack."""
 
 from perfbench import spans as sp
 

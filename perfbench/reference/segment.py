@@ -21,7 +21,7 @@ component filter, the centreline distance weighting, the linear resize to
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -305,8 +305,10 @@ def _disk2() -> np.ndarray:
     return x**2 + y**2 <= 4
 
 
-def branch_row(preds: torch.Tensor, width_um: float, graph: Dict) -> Tuple[int, float, float]:
-    """(branches, total um, mean um) of a (h, w) probability map, in float64."""
+def branch_row(preds: torch.Tensor, width_um: float, graph: Dict, pruning=None) -> Tuple[int, float, float]:
+    """(branches, total um, mean um) of a (h, w) probability map, in
+    float64; ``pruning`` (a bool raster at 384 px wide) prunes the
+    branches whose median falls on it."""
     seg = (preds > 0.5).cpu().numpy().astype(np.uint8)
     filtered = ndimage.median_filter(seg, footprint=_disk2(), mode="nearest") > 0
     skel = zhang_suen(torch.from_numpy(filtered).to(preds.device)).cpu().numpy()
@@ -327,7 +329,7 @@ def branch_row(preds: torch.Tensor, width_um: float, graph: Dict) -> Tuple[int, 
         (p384 - lo) * (255.0 / (hi - lo)),
         (graph.get("graph_thresh_1", 5), graph.get("graph_thresh_2", 10)),
         round(max(1, graph.get("graph_smoothing_window", 12) * px_per_um)),
-        round(graph.get("min_branch_length", 12) * px_per_um))
+        round(graph.get("min_branch_length", 12) * px_per_um), pruning)
     return n, total_px / px_per_um, avg_px / px_per_um
 
 
@@ -336,27 +338,31 @@ def project(stack: np.ndarray) -> np.ndarray:
     return stack.max(axis=0).astype(np.float64)
 
 
-def well_row(stack: np.ndarray, model: UNetRef, seg_cfg: Dict, device="cuda") -> Dict:
-    """What the reference makes of a well's raw stack: the patch batch's
-    probabilities (``probs``), the area's band (``area_band``) and the
-    segmentor's scale (``target``)."""
+def well_row(stack: np.ndarray, model: UNetRef, seg_cfg: Dict, traffic: Dict, device="cuda",
+             kept: Optional[Dict] = None) -> Dict:
+    """What the reference makes of a well's raw stack (trimmed to its
+    depth by the caller): the patch batch's probabilities (``probs``), the
+    area's band (``area_band``), the segmentor's scale (``target``) and the
+    projection (``proj``). A reference that judges more of what the
+    program made takes it from ``kept`` and returns its numbers in
+    ``gaps``; the max projection has none."""
     proj = torch.from_numpy(project(stack)).to(device)
     h, w = proj.shape
     target = (int(round(h * seg_cfg["ds_ratio"])), int(round(w * seg_cfg["ds_ratio"])))
     small = stretch(resize2d(proj, target, "lanczos3"))
     probs = model.predict(tile(small, seg_cfg["patch_size"], seg_cfg.get("tta", 8)))
-    return {"probs": probs, "area_band": area_band(proj), "target": target}
+    return {"probs": probs, "area_band": area_band(proj), "target": target, "proj": proj}
 
 
-def control_area(stack: np.ndarray, device="cuda") -> float:
+def control_area(want: Dict) -> float:
     """The control's area of a well: its GMM run in bfloat16."""
-    return 0.5 * sum(area_band(torch.from_numpy(project(stack)).to(device), 0.0, torch.bfloat16))
+    return 0.5 * sum(area_band(want["proj"], 0.0, torch.bfloat16))
 
 
-def tail_row(probs: torch.Tensor, target, seg_cfg: Dict, traffic: Dict,
+def tail_row(probs: torch.Tensor, want: Dict, seg_cfg: Dict, traffic: Dict,
              dtype=torch.float64) -> Tuple[int, float, float]:
     """The host tail's row from given patch outputs (the program's own):
-    blended, rounded to ``dtype`` (the control's bfloat16), then
-    ``branch_row``."""
-    preds = blend(probs, *target, seg_cfg["patch_size"], seg_cfg.get("tta", 8))
+    blended at ``want``'s scale, rounded to ``dtype`` (the control's
+    bfloat16), then ``branch_row``."""
+    preds = blend(probs, *want["target"], seg_cfg["patch_size"], seg_cfg.get("tta", 8))
     return branch_row(preds.to(dtype).double(), traffic["image_width_microns"], traffic.get("graph", {}))

@@ -313,11 +313,12 @@ def _smooth(g: Graph, pos: np.ndarray, window: int) -> None:
             done.add(chain[-1])
 
 
-def _trim(g: Graph, pos: np.ndarray, min_length: float) -> Graph:
+def _trim(g: Graph, pos: np.ndarray, min_length: float, pruning=None) -> Graph:
     """Segments between junctions peeled by walks from the leaves (first
     pass) or the junctions (second); leaf-ended segments whose bounding
-    box's diagonal is under ``min_length`` go, until a second pass removes
-    nothing."""
+    box's diagonal is under ``min_length`` go, and so do the others whose
+    median vertex (rounded half to even) falls on a set pixel of
+    ``pruning``, until a second pass removes nothing."""
     g = _copy(g)
     phase = 1
     while True:
@@ -341,6 +342,11 @@ def _trim(g: Graph, pos: np.ndarray, min_length: float) -> Graph:
                 if (len(g[seg[0]]) == 1 or len(g[seg[-1]]) == 1):
                     span = pos[seg].max(axis=0) - pos[seg].min(axis=0)
                     if math.sqrt(float((span**2).sum())) < min_length:
+                        doomed.append(seg)
+                        continue
+                if pruning is not None:
+                    r, c = np.round(np.median(pos[seg], axis=0)).astype(int)
+                    if 0 <= r < pruning.shape[0] and 0 <= c < pruning.shape[1] and pruning[r, c]:
                         doomed.append(seg)
         for seg in doomed:
             _remove(g, seg)
@@ -402,16 +408,17 @@ def _forest(g: Graph, pos: List[List[float]]):
 
 
 def branch_stats(img: np.ndarray, thresholds: Tuple[float, float], smoothing_window: int,
-                 min_branch_length: float) -> Tuple[int, float, float]:
+                 min_branch_length: float, pruning=None) -> Tuple[int, float, float]:
     """(branches, total length, mean length) in px of the Morse graph of
-    ``img`` (float64, 0-255)."""
+    ``img`` (float64, 0-255); ``pruning``, a bool raster of ``img``'s
+    shape, prunes the segments whose median lies on it."""
     verts, edges = dmt_graph(img, *thresholds)
     if len(edges) == 0:
         return 0, 0.0, 0.0
     g = _graph(edges)
     pos = verts.astype(np.float64)
     _smooth(g, pos, smoothing_window)
-    g = _trim(g, pos, min_branch_length)
+    g = _trim(g, pos, min_branch_length, pruning)
     pos = pos.tolist()
     forest, parent, dist = _forest(g, pos)
     leaves = [v for v in forest if len(forest[v]) == 1]

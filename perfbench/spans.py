@@ -7,7 +7,7 @@ keeps a record of spans (``tmat_torch/core/profiling.py``): each with its
 name, start and end on ``time.perf_counter``, thread, the span that caused
 it, its item (a plate call's sequence number and well id, or a stack id)
 and the counters its thread added while it was open. ``TraceSummary`` ties
-the trace's clock to ``perf_counter`` through its first marker's launch
+the trace's clock to ``perf_counter`` through its first kernel launch (its marker's)
 (``ts0`` at ``perf0``), so an instant ``t`` lies at ``ts0 + (t - perf0) *
 1e6`` on the device's timeline, and the card's busy and idle time inside a
 span comes from ``TraceSummary.device``. A program without the record (a
@@ -41,7 +41,7 @@ def traced_spans(run) -> Optional[list]:
 def named(spans: Iterable, name: str) -> list:
     """The spans called ``name``, leaving out one opened directly inside a
     span of the same name (a caller's own timer around a call that the
-    program spans too, as the inv_depth driver's ``host_resize``)."""
+    program spans too)."""
     spans = list(spans)
     ids = {s.id for s in spans if s.name == name}
     return [s for s in spans if s.name == name and s.parent not in ids]
@@ -85,8 +85,8 @@ def _busy_us(busy: List[Tuple[float, float]], starts: List[float], a: float, b: 
 
 def idle_s(ts, spans: Iterable) -> Optional[float]:
     """Seconds inside the spans in which no operation ran on the card;
-    None without a marker to tie the clocks (no card)."""
-    if not ts.markers:
+    None without a launch to tie the clocks (no card)."""
+    if not ts.tied:
         return None
     busy = busy_intervals(ts)
     starts = [a for a, _ in busy]
@@ -100,8 +100,8 @@ def idle_s(ts, spans: Iterable) -> Optional[float]:
 def idle_at_start(ts, spans: Iterable) -> Optional[List[bool]]:
     """For each span, whether the card was idle at its mapped start (a
     check of the tie: a stage that starts on a drained stream starts idle);
-    None without a marker."""
-    if not ts.markers:
+    None without a launch to tie the clocks."""
+    if not ts.tied:
         return None
     busy = busy_intervals(ts)
     starts = [a for a, _ in busy]

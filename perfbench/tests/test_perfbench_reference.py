@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from perfbench.reference import resnet as ref_resnet
-from perfbench.reference import segment, topology
+from perfbench.reference import segment, segment_fs_well, topology
 from perfbench.reference.flax_msgpack import read_flax
 
 REPO = Path(__file__).resolve().parents[2]
@@ -185,3 +185,102 @@ def test_component_filter_drops_round_and_forkless_components():
     kept = topology.component_filter(mask, skel)
     assert not kept[10, 10] and not kept[30, 20] and kept[21, 25]
     assert topology.component_filter(mask, skel, remove_isolated=False)[30, 20]
+
+
+def test_unit_draws_match_the_programs():
+    """The well search's draws, JAX's uniform written in numpy, bit for bit."""
+    from tmat_torch.ops.wellmask import unit_draws
+
+    for seed in (0, 7, 2**33 + 5):
+        assert np.array_equal(segment_fs_well.unit_draws(seed, (300, 6)), unit_draws(seed, 300))
+
+
+def _fs_well(seed: int, size: int, k: int = 0):
+    """A disc well of the plate_fs_well recipe at ``size`` px, 4 slices,
+    under dihedral transform ``k``."""
+    import json
+
+    from perfbench.harness import load_module
+    from perfbench.inputs.vessels import seeded
+
+    traffic = json.loads((REPO / "perfbench" / "traffic" / "plate_fs_well.json").read_text())
+    traffic.update(size=size, z=4)
+    traffic["well"].update(rim_sigma=size / 170, sharp_below=3)
+    gen = load_module(REPO / "perfbench" / "traffic" / "plate_fs_well.py")
+    return gen.d4(torch.from_numpy(gen.fs_well(seeded(seed, 1), traffic, 8)), k)
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_focus_projection_matches_the_programs(seed):
+    """Over each well's own depth, the padding left out: the same source
+    pixel wherever the program's float32 scores are not a near-tie."""
+    from tmat_torch.ops.focus_stack import focus_stack_plain
+
+    well = _fs_well(seed, 128)
+    for depth in (4, 3):
+        prog = focus_stack_plain(well[None], [depth])[0].double()
+        ref = segment_fs_well.focus_project(well[:depth].numpy())
+        assert (prog != ref).sum().item() <= 2
+    # the padding counts once the depth is ignored: the projections differ
+    noisy = well.clone()
+    noisy[3] = torch.randint(0, 256, noisy[3].shape, generator=torch.Generator().manual_seed(seed),
+                             dtype=torch.uint8)
+    assert (segment_fs_well.focus_project(noisy.numpy()) != segment_fs_well.focus_project(well[:3].numpy())
+            ).float().mean() > 0.3
+
+
+@pytest.mark.parametrize("seed,k", [(1, 0), (2, 3), (3, 5)])
+def test_well_fit_allows_the_programs_mask(seed, k):
+    """The program's well mask and shrunken mask are one of the masks that
+    the reference's fit allows (exact ties of its edges resolved either
+    way), and the fit is held to the image: a moved well is another mask."""
+    from tmat_torch.ops.resize import resize
+    from tmat_torch.ops.wellmask import make_well_mask
+
+    well = _fs_well(seed, 400, k)
+    img = resize(well.max(dim=0).values.float(), (256, 256), "lanczos").numpy()
+    fit = segment_fs_well.fit_well(img.astype(np.float64), seed=0)
+    assert fit.exponents and fit.candidates
+    prog = make_well_mask(img, seed=0)
+    assert 0.4 < prog[0].mean() < 1  # the mask is used, not dropped
+    assert segment_fs_well.mask_gap(fit, prog)[0] == 0
+    moved = make_well_mask(np.roll(img, 12, axis=1), seed=0)
+    assert segment_fs_well.mask_gap(fit, moved)[0] > 0.005
+
+
+@pytest.mark.parametrize("ratio,allowed", [(0.020, {2}), (0.0262, {2, 8}), (0.0280, {2, 8}),
+                                           (0.0300, {8})])
+def test_exponents_near_the_cut_admit_both(ratio, allowed):
+    """The hull's perimeter over its area decides the exponent only away
+    from the cut; within EXP_TOL of it, both are allowed."""
+    assert segment_fs_well.exponents(ratio) == allowed
+
+
+def test_proj_gap_is_the_share_of_pixels_that_differ():
+    """The nearest of the program's projections is judged pixel by pixel;
+    a well with none reads 1."""
+    ref = torch.arange(64, dtype=torch.float64).reshape(8, 8)
+    off = ref.float().clone()
+    off[0, :4] += 1
+    other = torch.zeros(8, 8)
+    assert segment_fs_well.proj_gap(ref, [other, ref.float()]) == 0
+    assert segment_fs_well.proj_gap(ref, [other, off]) == 4 / 64
+    assert segment_fs_well.proj_gap(ref, []) == 1
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_pruned_tail_matches_the_programs(seed):
+    """The reference's Morse branches with a pruning mask against the
+    program's C++ engine: the count exactly, the lengths to rounding."""
+    from tmat_torch.topo.morse_native import morse_stats_native
+
+    preds = _vessel_map(seed, 320)
+    img = ((preds - preds.min()) * (255 / np.ptp(preds))).astype(np.float32)
+    yy, xx = np.mgrid[:320, :320]
+    pruning = (yy - 150) ** 2 + (xx - 175) ** 2 > 120**2
+    for mask in (pruning, pruning.T.copy()):
+        n, total, _ = topology.branch_stats(img.astype(np.float64), (5, 10), 4, 4, mask)
+        n_prog, total_prog, _ = morse_stats_native(img, thresholds=(5, 10), smoothing_window=4,
+                                                   min_branch_length=4, pruning_mask=mask)
+        assert n == n_prog > 10
+        assert abs(total - total_prog) <= 1e-6 * total_prog

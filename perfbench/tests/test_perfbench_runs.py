@@ -122,6 +122,43 @@ def test_faults_fail(tiny, cell, fault):
     assert not res["correct"], res["check"]
 
 
+def test_fs_well_cell_runs(tiny):
+    """The focus-stacked, well-masked plate: the program's masks are ones
+    that the reference's fit allows, and the rest agrees inside them."""
+    tmp, bench = tiny
+    res = run_tiny(tmp, bench, "tiny_fs")
+    assert res["correct"], res["check"]
+    assert res["check"]["mask_gap"]["value"] == 0 and res["check"]["prob_gap"]["value"] < 1e-4
+    assert res["check"]["proj_gap"]["value"] <= 1e-4  # the program's projections, kept and judged
+    assert {"wells_per_s", "setup_s"} <= set(res["metrics"])
+    traced = run_tiny(tmp, bench, "tiny_fs", trace=True)
+    assert traced["correct"], traced["check"]
+    assert traced["metrics"]["well_mask_ms.plate"]["value"] > 0
+    assert traced["metrics"]["host_tail_ms.plate"]["value"] > 0  # read over the window, not the trace
+    # no kernel runs on the CPU: the roofline has nothing to read
+    assert "focus_stack_roofline" not in traced["metrics"]
+
+
+def _fs_call(**changes):
+    """A fault: ``run_plate`` called with the traffic's arguments changed
+    (``calibrate.py --fault`` plants the same at the cell's size)."""
+    from perfbench.calibrate import changed_call
+
+    return lambda run: changed_call(run.driver, changes)
+
+
+@pytest.mark.parametrize("control,fault", [
+    ("control", None),
+    ("", _fs_call(z_counts=None)),  # the padding counted
+    ("", _fs_call(proj_method="max")),  # max in place of focus stacking
+    ("", _fs_call(detect_well=False)),  # the well mask dropped
+], ids=["control", "padding_counted", "max_for_fs", "mask_dropped"])
+def test_fs_well_control_and_faults_fail(tiny, control, fault):
+    tmp, bench = tiny
+    res = run_tiny(tmp, bench, "tiny_fs", control=control, fault=fault)
+    assert not res["correct"], res["check"]
+
+
 def test_no_jax_in_a_run(tiny):
     """A run's process loads neither JAX nor the JAX package (whole
     top-level names: tmat_torch is not tmat_tpu)."""
@@ -174,7 +211,7 @@ def test_run_refuses_without_a_card_and_outside_a_checkout(tmp_path):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cell", ["plate_max", "inv_depth_1024"])
+@pytest.mark.parametrize("cell", ["plate_max", "inv_depth_1024", "plate_fs_well"])
 def test_control_fails_at_the_cells_size_on_the_card(cuda, cell):
     """The control at the cell's own size on the card: one seed of the
     program is correct, one of the control is not (the readings the limits

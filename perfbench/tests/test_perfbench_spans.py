@@ -128,3 +128,32 @@ def test_no_marker_no_idle(monkeypatch):
     run = _run("plate", PLATE, monkeypatch, markers=False)
     assert _read("stage1_idle_ms.plate", run) is None
     assert _read("stage1_syncs.plate", run) is not None
+
+
+def test_fs_well_readers():
+    """focus_stack_roofline from kernel names in a trace made by hand, and
+    well_mask_ms.plate from the program's stage totals."""
+    import numpy as np
+
+    from perfbench.work import focus_work
+
+    ev = [_ev("kernel", "void focus_stack_kernel<unsigned char>(unsigned char const*, int const*)", 1010, 40,
+              corr=1),
+          _ev("kernel", "void focus_stack_kernel<unsigned char>(unsigned char const*, int const*)", 1100, 60,
+              corr=2),
+          _ev("kernel", "k2", 1200, 500, corr=3)]
+    traffic = {"size": 1024, "z": 8, "wells_per_plate": 2, "trace_plates": [2, 3],
+               "run_plate": {"proj_method": "fs", "z_counts": [8, 5]}}
+    driver = SimpleNamespace(kind="plate", counters={"plates": 4, "wells": 8}, plates=[np.zeros(1, np.uint8)])
+    run = SimpleNamespace(trace_summary=TraceSummary(ev, PERF0, PERF0 + 1e-3), traffic=traffic, driver=driver,
+                          timer=SimpleNamespace(totals={"well_mask": 0.2}, total=lambda *n: 0.2))
+    bound = 2 * (focus_work([8], 1024, 1024, 1)["bound_s"] + focus_work([5], 1024, 1024, 1)["bound_s"])
+    assert _read("focus_stack_roofline", run) == pytest.approx(bound / 100e-6 * 100)  # plates 2 and 3
+    assert _read("well_mask_ms.plate", run) == pytest.approx(0.2 / 8 * 1e3)
+    traffic["run_plate"]["proj_method"] = "max"  # no focus stacking: nothing to read
+    assert _read("focus_stack_roofline", run) is None
+    run.timer.totals = {}  # no well mask fitted
+    assert _read("well_mask_ms.plate", run) is None
+    traffic["run_plate"]["proj_method"] = "fs"
+    run.trace_summary = TraceSummary(ev[2:], PERF0, PERF0 + 1e-3)  # no kernel launched
+    assert _read("focus_stack_roofline", run) is None

@@ -33,3 +33,18 @@ def test_spans_busy_and_gaps():
     assert [n for n, _ in ts.device_ops()] == ["down_block_kernel", "Memcpy", "other"]
     gaps = ts.idle_gaps([("morse_graphs", -1.0, 1.0)])
     assert gaps[0][0] == "morse_graphs" and len(gaps) <= 10
+
+
+def test_the_window_marker_lost_from_the_trace():
+    """The window's own marker, the first kernel after the profiler starts,
+    is at times missing from the trace: the spans' markers are counted from
+    the end, and the clocks are tied at the first launch the trace has."""
+    full = TraceSummary(_trace(), t0=0.0, t1=100e-6)
+    ev = [e for e in _trace() if not (e["cat"] == "kernel" and e["args"]["correlation"] == 100)]
+    ts = TraceSummary(ev, t0=0.0, t1=100e-6)
+    assert len(ts.markers) == 4 and ts.tied and ts.ts0 == full.ts0
+    assert ts.span_device_s(["down_block", "focus_stack"], "down_block") == 10 / 1e6
+    assert ts.span_device_s(["down_block", "focus_stack"], "focus_stack") == 5 / 1e6
+    # its launch gone too: tied at the next launch
+    ev = [e for e in ev if e["args"]["correlation"] != 100]
+    assert TraceSummary(ev, t0=0.0, t1=100e-6).ts0 == full.ts0 + 10

@@ -5,7 +5,8 @@
 do), two configurations with seeded weights written in the shipped
 checkpoints' format (a UNet-Xception of widths 8-64 at patch 32, and two
 ResNet50 members to ``conv2_block3_out`` at 32 px), a tiny cell of each
-driver with the real cells' limits, the plate cell with a generator
+real cell with its limits (``tiny_plate``, ``tiny_inv``, ``tiny_fs``: two
+192 px disc wells of depths 3 and 2 of 3), the plate cell with a generator
 (``traffic/tiny_plate.py``) and a reference module of its own, and a
 dummy per-layer metric. The
 harness then runs them on the CPU through ``harness.Run`` and
@@ -51,8 +52,8 @@ def _write(path: Path, obj) -> None:
 
 
 def tiny_copy(tmp: Path) -> dict:
-    """The copy's BENCHMARK.json (as a dict), with cells ``tiny_plate`` and
-    ``tiny_inv`` and metric ``plates_seen`` added."""
+    """The copy's BENCHMARK.json (as a dict), with cells ``tiny_plate``,
+    ``tiny_inv`` and ``tiny_fs`` and metric ``plates_seen`` added."""
     import torch
     from tmat_torch.models.layers import flax_variables
     from tmat_torch.models.params_io import save_params
@@ -100,6 +101,13 @@ def tiny_copy(tmp: Path) -> dict:
     plate.update(size=64, z=3, wells_per_plate=2, pool_wells=3, cycle_plates=3, trace_plates=[1, 1],
                  check_plate_rate=0.5, reference="tiny_segment")
     _write(pb / "traffic" / "tiny_plate.json", plate)
+    fs = json.loads((pb / "traffic" / "plate_fs_well.json").read_text())
+    fs.update(size=192, z=3, wells_per_plate=2, pool_wells=3, cycle_plates=3, trace_plates=[1, 1],
+              check_plate_rate=0.5)
+    fs["run_plate"]["z_counts"] = [3, 2]
+    fs["well"].update(rim_sigma=2.0, regions=3, sharp_below=2)
+    _write(pb / "traffic" / "tiny_fs.json", fs)
+    shutil.copy(pb / "traffic" / "plate_fs_well.py", pb / "traffic" / "tiny_fs.py")
     (pb / "traffic" / "tiny_plate.py").write_text(GENERATOR)
     (pb / "reference" / "tiny_segment.py").write_text(REFERENCE)
     inv = json.loads((pb / "traffic" / "inv_depth_1024.json").read_text())
@@ -107,6 +115,7 @@ def tiny_copy(tmp: Path) -> dict:
                check_stack_rate=1.0)
     _write(pb / "traffic" / "tiny_inv.json", inv)
     shutil.copy(pb / "limits" / "plate_max.json", pb / "limits" / "tiny_plate.json")
+    shutil.copy(pb / "limits" / "plate_fs_well.json", pb / "limits" / "tiny_fs.json")
     shutil.copy(pb / "limits" / "inv_depth_1024.json", pb / "limits" / "tiny_inv.json")
     (pb / "metrics" / "plates_seen.py").write_text(DUMMY_METRIC)
 
@@ -117,9 +126,11 @@ def tiny_copy(tmp: Path) -> dict:
          "file": "perfbench/configs/tiny_res.json", "reduced": ["last_layer"], "why": "test"}]
     bench["workloads"] += [
         {"name": "tiny_plate", "config": "tiny_seg", "traffic": "tiny_plate", "chips": 1, "why": "test"},
-        {"name": "tiny_inv", "config": "tiny_res", "traffic": "tiny_inv", "chips": 1, "why": "test"}]
+        {"name": "tiny_inv", "config": "tiny_res", "traffic": "tiny_inv", "chips": 1, "why": "test"},
+        {"name": "tiny_fs", "config": "tiny_seg", "traffic": "tiny_fs", "chips": 1, "why": "test"}]
     for m in bench["end_to_end"] + bench["per_layer"]:
-        for real, tiny in (("plate_max", "tiny_plate"), ("inv_depth_1024", "tiny_inv")):
+        for real, tiny in (("plate_max", "tiny_plate"), ("inv_depth_1024", "tiny_inv"),
+                           ("plate_fs_well", "tiny_fs")):
             if real in m.get("workloads", []):
                 m["workloads"].append(tiny)
     bench["per_layer"].append({"name": "plates_seen", "unit": "plates", "better": "higher",

@@ -17,9 +17,11 @@ empty ``spin_kernel``) at its start and its end, on the stream the program
 uses. The program issues all its device work from under one lock onto that
 one in-order stream, so the device operations that run between a span's
 two markers are exactly those launched inside it; they are found by their
-place on the device's timeline, never by their names. A marker launched
-when the traced part starts ties the trace's clock to the host's (through
-its launch's correlation).
+place on the device's timeline, never by their names. A marker is
+launched when the traced part starts, before any other work; the trace
+at times lacks that first kernel's record (CUPTI), so the spans' markers
+are counted from the end, and the trace's clock is tied to the host's at
+the first kernel launch it records (that marker's, or the first after it).
 """
 
 from __future__ import annotations
@@ -150,23 +152,28 @@ class TraceSummary:
         self.markers = sorted(iv(e) for e in dev if corr(e) in markers)
         self.device = sorted((*iv(e), e.get("name", ""), corr(e)) for e in dev if corr(e) not in markers)
         self.busy_s = union_s((a, b) for a, b, _, _ in self.device) / 1e6
-        marker_launches = [iv(e)[0] for e in xs if e.get("cat") in LAUNCH_CATS and corr(e) in markers]
-        # the trace's clock at the window's start (its first marker's launch), against perf_counter
-        self.ts0 = min(marker_launches, default=min((iv(e)[0] for e in xs), default=0.0))
+        launches = [iv(e)[0] for e in xs if e.get("cat") in LAUNCH_CATS and "LaunchKernel" in e.get("name", "")]
+        # the trace's clock at the window's start (the first kernel launch:
+        # its marker's), against perf_counter; untied without one (no card)
+        self.tied = bool(launches)
+        self.ts0 = min(launches, default=min((iv(e)[0] for e in xs), default=0.0))
         self.perf0 = t0
 
     def span_device_s(self, kinds: List[str], kind: str) -> Optional[float]:
         """Device seconds of the operations run inside the spans of
         ``kind``, where ``kinds`` lists every span of the traced part in the
         order they were opened (a span's markers are the (2i+1)-th and
-        (2i+2)-th, after the window's). None when the trace lacks a marker."""
-        if len(self.markers) != 1 + 2 * len(kinds):
+        (2i+2)-th of the last 2 x len(kinds), whether the window's own is
+        in the trace or not). None when the trace lacks a span's marker."""
+        n = 2 * len(kinds)
+        if len(self.markers) not in (n, n + 1):
             return None
+        marks = self.markers[len(self.markers) - n:]
         total = 0.0
         for i, k in enumerate(kinds):
             if k != kind:
                 continue
-            a, b = self.markers[1 + 2 * i][1], self.markers[2 + 2 * i][0]
+            a, b = marks[2 * i][1], marks[2 * i + 1][0]
             total += sum(min(e, b) - max(s, a) for s, e, _, _ in self.device if s < b and e > a)
         return total / 1e6
 
