@@ -4,9 +4,11 @@ Spans are kept only while a ``torch.profiler`` records on the thread that
 called the tool's entry point; a tiny 3-well plate and a tiny invasion
 ensemble show their names, parents, threads and items; the counters
 ``gmm_iters`` and ``skeleton_passes`` against independent counts of the
-loops they count; ``predict_rows`` with a timer never synchronises; the
-spans' clock is ``time.perf_counter`` and ``maybe_profile`` writes them
-into its trace on the trace's clock. All on the CPU, a few seconds.
+loops they count; a SwinV2 member's ``swin_forward`` span with its
+``attn_calls`` and ``attn_windows``, and ``swin_tables`` at load;
+``predict_rows`` with a timer never synchronises; the spans' clock is
+``time.perf_counter`` and ``maybe_profile`` writes them into its trace on
+the trace's clock. All on the CPU, a few seconds.
 """
 
 import json
@@ -25,6 +27,7 @@ from tmat_torch.core.profiling import (
 from tmat_torch.models.layers import flax_variables
 from tmat_torch.models.params_io import save_params
 from tmat_torch.models.resnet import build_resnet50_tl
+from tmat_torch.models.swin import build_swinv2_tl
 from tmat_torch.models.unet import UNetXceptionPatchSegmentor, build_unet_xception
 from tmat_torch.ops import morphology, threshold
 from tmat_torch.tools import compute_inv_depth as inv
@@ -232,6 +235,40 @@ def test_predict_rows_counts_the_resize_launch_on_the_card(ensemble):
     for sid, _ in stacks:
         mine = {s.name: s.counts for s in spans if s.item == sid}
         assert mine == {"host_resize": {"resize_launches": 1}, "dispatch": None, "fetch_wait": None}
+
+
+SWIN_ARCH = {"patch": 4, "embed_dim": 32, "depths": (2, 2, 2, 2), "heads": (1, 2, 4, 8), "window": 4,
+             "mlp_ratio": 4, "cpb_hidden": 64}
+SWIN_WINDOWS = 2 * 16 + 2 * 4 + 2 * 1 + 2 * 1  # an image's: per stage, blocks x (grid / window)²
+
+
+def test_swin_forward_span_counts_its_attention():
+    """A SwinV2 member's forward is a ``swin_forward`` span inside its
+    stack's ``dispatch``, counting its 8 attention calls and their windows."""
+    members = [build_swinv2_tl((64, 64, 3), SWIN_ARCH, seed=s, device="cpu") for s in (1, 2)]
+    stacks = [(f"S{i}", np.full((2, 72, 72), 40 * i + 10, np.uint8)) for i in range(2)]
+    timer = StageTimer()
+    with _cpu_profile():
+        inv.predict_rows(stacks, members, (64, 64), 0.5, timer)
+    spans = recorded_spans()
+    assert timer.counts["swin_forward"] == len(stacks) * len(members)
+    for sid, stack in stacks:
+        mine = [s for s in spans if s.item == sid]
+        dispatch = next(s for s in mine if s.name == "dispatch")
+        fwd = [s for s in mine if s.name == "swin_forward"]
+        assert len(fwd) == len(members) and all(s.parent == dispatch.id for s in fwd)
+        assert all(s.thread == threading.get_native_id() for s in fwd)
+        assert [s.counts for s in fwd] == [{"attn_calls": 8, "attn_windows": len(stack) * SWIN_WINDOWS}] * 2
+        assert dispatch.counts == {"attn_calls": 16, "attn_windows": 2 * len(stack) * SWIN_WINDOWS}
+
+
+def test_swin_tables_are_a_span_at_load():
+    member = build_swinv2_tl((64, 64, 3), SWIN_ARCH, seed=3, device="cpu")
+    assert recorded_spans() == []  # built outside a traced block: no record
+    with traced(True, "load"):
+        member.prepare()
+    spans = recorded_spans()
+    assert [s.name for s in spans] == ["swin_tables"] and spans[0].counts == {"cpb_tables": 8}
 
 
 def test_the_span_clock_is_perf_counter():

@@ -3,7 +3,10 @@
 Counterpart of ``tmat_tpu/models/preprocess.py``: each slice is resized to
 the classifier's input size with Lanczos-4, stretched to its own 0-255
 range, repeated to 3 channels, then Keras ``resnet50.preprocess_input``
-(caffe mode: RGB->BGR and the ImageNet means subtracted).
+(caffe mode: RGB->BGR and the ImageNet means subtracted). The SwinV2
+members (``models/swin.py``) take the same stretched 3 channels with
+torchvision's ImageNet normalisation on [0, 1] instead
+(``imagenet_prep_tail``).
 
 ``prep_inv_depth_imgs`` does all of it on the device with the jax-lanczos5
 resize (``ops/resize.py::resize``). The tool takes the hybrid path: the
@@ -14,6 +17,7 @@ on the device (``prep_tail``).
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Tuple
 
 import numpy as np
@@ -25,6 +29,9 @@ from tmat_torch.ops.resize import resize, resize_lanczos4_host
 
 # Keras caffe-mode ImageNet means, BGR order
 _CAFFE_MEAN_BGR = np.array([103.939, 116.779, 123.68], np.float32)
+# torchvision's ImageNet mean and std, RGB, on [0, 1]
+_IMAGENET_MEAN = (0.485, 0.456, 0.406)
+_IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 def resnet50_preprocess(x: torch.Tensor) -> torch.Tensor:
@@ -39,6 +46,24 @@ def prep_tail(resized: torch.Tensor) -> torch.Tensor:
     classifier inputs: per-slice 0-255 stretch, 3 channels, caffe means."""
     rescaled = rescale_intensity(resized.float(), out_range=(0, 255), dims=(-2, -1))
     return resnet50_preprocess(rescaled[..., None].repeat(1, 1, 1, 3))
+
+
+@lru_cache(maxsize=None)
+def _imagenet_affine(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scale, shift) of each channel that maps a 0-255 value to its
+    normalised one, on ``device`` (made once: no copy to the card a stack)."""
+    std = torch.tensor(_IMAGENET_STD, dtype=torch.float64)
+    scale = 1.0 / (255.0 * std)
+    shift = -torch.tensor(_IMAGENET_MEAN, dtype=torch.float64) / std
+    return scale.float().to(device), shift.float().to(device)
+
+
+def imagenet_prep_tail(resized: torch.Tensor) -> torch.Tensor:
+    """(Z, h, w) resized slices of any dtype -> (Z, h, w, 3) float32 SwinV2
+    inputs: per-slice 0-255 stretch, 3 channels, each ``(v/255 − mean)/std``."""
+    rescaled = rescale_intensity(resized.float(), out_range=(0, 255), dims=(-2, -1))
+    scale, shift = _imagenet_affine(rescaled.device)
+    return torch.addcmul(shift, rescaled[..., None], scale)
 
 
 def prep_inv_depth_imgs(images: torch.Tensor, img_hw: Tuple[int, int]) -> torch.Tensor:

@@ -14,7 +14,8 @@ convolution pads nothing (Flax SAME for a 1x1 kernel, even or odd size).
 The base runs in the model's compute dtype (bfloat16 on CUDA, channels
 last); the pooled features are cast to float32 for the head, as the JAX
 model does. ``ensemble_forward`` runs k members on one input: the
-counterpart of the JAX package's vmapped ``make_ensemble_apply``.
+counterpart of the JAX package's vmapped ``make_ensemble_apply``; it also
+runs ``models/swin.py``'s members.
 
 ``TrainableResNet50TL`` is the Flax module with BatchNorm unfolded, for
 training (``models/train.py``): Flax names, layouts and init, float32.
@@ -294,7 +295,17 @@ def load_member(model: ResNet50TL, weights) -> ResNet50TL:
 
 
 @torch.no_grad()
-def ensemble_forward(members: Sequence[ResNet50TL], x: torch.Tensor) -> torch.Tensor:
-    """(k, B, n_outputs) float32: each member on the same (B, h, w, 3)
-    input, in turn on the current stream."""
-    return torch.stack([m(x) for m in members])
+def ensemble_forward(members: Sequence[nn.Module], x: torch.Tensor, timer=None) -> torch.Tensor:
+    """(k, B, n_outputs) float32: each member (of any backbone: ResNet50TL,
+    ``swin.SwinV2TL``) on the same (B, h, w, 3) input, in turn on the
+    current stream. A member whose class names a ``span`` runs inside that
+    stage of ``timer`` (a ``core.profiling.StageTimer``), if one is given."""
+    outs = []
+    for m in members:
+        span = getattr(m, "span", None)
+        if span is None or timer is None:
+            outs.append(m(x))
+        else:
+            with timer.stage(span):
+                outs.append(m(x))
+    return torch.stack(outs)

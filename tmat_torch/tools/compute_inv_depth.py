@@ -9,6 +9,16 @@ Invasion Prediction (0=no 1=yes)). Under torchrun each process predicts a
 round-robin stripe of the stacks and the primary writes the CSV from
 every process's rows (``parallel/distributed.py``).
 
+The ensemble's hp file (``invasion_depth_best_hp.json``) may name its
+backbone under the key ``backbone`` (``BACKBONES``): ``"resnet50"``, the
+default (Flax checkpoints ``best_finetune_weights_<i>.msgpack``, truncated
+at ``last_resnet_layer``), or ``"swinv2_base_window16_256"`` (SwinV2,
+``models/swin.py``: ``torch.save``d state dicts
+``best_finetune_weights_<i>.pt``, their sizes read from them; the port has
+no trainer for them yet). The members carry their backbone, so the rest
+of the tool takes either kind: each backbone's prep tail (``PREP_TAILS``)
+follows the shared resize.
+
 Each raw stack is uploaded once and everything runs on the device: the
 Lanczos-4 resize (``ops/resize_lanczos4.py``, a CUDA kernel on the card,
 its plain version on the CPU; the function of ``models/preprocess.py::
@@ -22,7 +32,9 @@ Stages, all by the host clock (none calls a synchronise): ``host_resize``,
 the host's share of the resize (the upload of the raw stack, a blocking
 copy that starts once the work queued before it is done, and the kernel's
 launch; on the CPU, the whole resize), ``dispatch`` (the prep
-tail and the members' forwards as the host enqueues them) and
+tail and the members' forwards as the host enqueues them; inside it, a
+SwinV2 member's forward is the stage ``swin_forward``, which counts its
+attention calls and windows, ``attn_calls`` and ``attn_windows``) and
 ``fetch_wait`` (the host blocked in the copy of a stack's probabilities
 back). While a ``torch.profiler`` records on the thread that calls
 ``predict_rows``, they are also spans of their stack
@@ -51,9 +63,8 @@ from tmat_torch.core.log import SFM, section_footer, section_header
 from tmat_torch.core.profiling import StageTimer, maybe_profile, profiler_active, traced
 from tmat_torch.device import DeviceLike, default_dtype, resolve_device
 from tmat_torch.models.params_io import from_flax_resnet_variables, load_variables
-# host_resize is no longer called here: the perfbench inv_depth cell still
-# replaces this module's name with its own timed wrapper
-from tmat_torch.models.preprocess import host_resize, prep_tail  # noqa: F401
+from tmat_torch.models import swin
+from tmat_torch.models.preprocess import imagenet_prep_tail, prep_tail
 from tmat_torch.models.resnet import ResNet50TL, build_resnet50_tl, ensemble_forward, load_member
 from tmat_torch.ops.resize_lanczos4 import resize_lanczos4
 from tmat_torch.parallel.distributed import (
@@ -66,6 +77,10 @@ RESIZE_DTYPES = (np.uint8, np.uint16, np.float32)  # the resize kernel's
 ID_COL = "Z Slice ID"
 PROB_COL = "Invasion Probability"
 PRED_COL = "Invasion Prediction (0=no 1=yes)"
+# backbone -> the suffix of its members' checkpoints
+BACKBONES = {"resnet50": ".msgpack", swin.BACKBONE: ".pt"}
+# member class -> what turns resized slices into its inputs
+PREP_TAILS = {ResNet50TL: prep_tail, swin.SwinV2TL: imagenet_prep_tail}
 
 
 def _rank_models_by_history(ensemble_dir: Path, n_models: int) -> np.ndarray:
@@ -85,14 +100,21 @@ def _rank_models_by_history(ensemble_dir: Path, n_models: int) -> np.ndarray:
     return best_val_losses.argsort()
 
 
-def load_ensemble(checkpoints: Sequence[Path], img_shape: Tuple[int, int, int], last_layer: str,
-                  dtype: Optional[torch.dtype] = None, device: DeviceLike = None) -> List[ResNet50TL]:
-    """One classifier per Flax checkpoint, on ``device`` (None = CUDA), in
-    ``dtype`` (default: bfloat16 on CUDA, float32 on the CPU)."""
+def load_ensemble(checkpoints: Sequence[Path], img_shape: Tuple[int, int, int], last_layer: Optional[str],
+                  dtype: Optional[torch.dtype] = None, device: DeviceLike = None,
+                  backbone: str = "resnet50") -> List[torch.nn.Module]:
+    """One classifier per checkpoint of ``backbone`` (``BACKBONES``; the
+    module doc), on ``device`` (None = CUDA), in ``dtype`` (default:
+    bfloat16 on CUDA, float32 on the CPU). ``last_layer`` is ResNet50's."""
+    if backbone not in BACKBONES:
+        raise ValueError(f"unknown backbone {backbone!r}: one of {sorted(BACKBONES)}")
     dev = resolve_device(device)
     dtype = dtype or default_dtype(dev)
     members = []
     for ckpt in checkpoints:
+        if backbone == swin.BACKBONE:
+            members.append(swin.load_member(ckpt, img_shape, dtype, dev))
+            continue
         model = build_resnet50_tl(1, img_shape, last_layer, dtype=dtype, init="zeros", device=dev)
         members.append(load_member(model, from_flax_resnet_variables(load_variables(ckpt))))
     return members
@@ -114,19 +136,20 @@ def resize_stack(stack: np.ndarray, img_hw: Tuple[int, int], dev: torch.device) 
     return resized
 
 
-def dispatch_stack(stack: np.ndarray, ensemble: Sequence[ResNet50TL], img_hw: Tuple[int, int],
+def dispatch_stack(stack: np.ndarray, ensemble: Sequence[torch.nn.Module], img_hw: Tuple[int, int],
                    timer: Optional[StageTimer] = None) -> torch.Tensor:
     """Queue one (Z, H, W) or (H, W) stack on the ensemble's device:
-    (k, Z, 1) member probabilities, still on the device."""
+    (k, Z, 1) member probabilities, still on the device. The members'
+    backbone picks the prep tail (``PREP_TAILS``)."""
     dev = next(ensemble[0].parameters()).device
     timer = timer or StageTimer()
     with timer.stage("host_resize"):
         resized = resize_stack(stack, img_hw, dev)
     with timer.stage("dispatch"):
-        return ensemble_forward(ensemble, prep_tail(resized))
+        return ensemble_forward(ensemble, PREP_TAILS[type(ensemble[0])](resized), timer)
 
 
-def predict_stack(stack: np.ndarray, ensemble: Sequence[ResNet50TL],
+def predict_stack(stack: np.ndarray, ensemble: Sequence[torch.nn.Module],
                   img_hw: Tuple[int, int]) -> np.ndarray:
     """(k, Z, 1) float32 member probabilities of one stack's slices, on the
     host."""
@@ -144,7 +167,7 @@ def stack_rows(stack_id: str, member_probs: np.ndarray, cls_thresh: float) -> Li
     return rows
 
 
-def predict_rows(stacks: Iterable[Tuple[str, np.ndarray]], ensemble: Sequence[ResNet50TL],
+def predict_rows(stacks: Iterable[Tuple[str, np.ndarray]], ensemble: Sequence[torch.nn.Module],
                  img_hw: Tuple[int, int], cls_thresh: float,
                  timer: Optional[StageTimer] = None) -> List[Dict]:
     """The CSV rows of each ``(id, stack)`` in turn. At most MAX_IN_FLIGHT
@@ -197,7 +220,12 @@ def main(args=None, argv=None, device: DeviceLike = None):
     cls_thresh = training_values["cls_thresh"]
     resnet_inp_shape = tuple(training_values["resnet_inp_shape"])
     n_models = training_values["n_models"]
-    last_resnet_layer = best_hp["last_resnet_layer"]
+    backbone = best_hp.get("backbone", "resnet50")
+    if backbone not in BACKBONES:
+        print(f"{SFM.failure} Unknown backbone {backbone!r} in invasion_depth_best_hp.json: "
+              f"one of {sorted(BACKBONES)}.", flush=True)
+        sys.exit(1)
+    last_resnet_layer = best_hp.get("last_resnet_layer")  # ResNet50's only
 
     # an explicit config from either entry path: the CLI flag or the GUI's field
     config_path = getattr(args, "config", None) or default_config_path
@@ -220,7 +248,7 @@ def main(args=None, argv=None, device: DeviceLike = None):
 
     ensemble = []
     for i in range(n_pred_models):
-        ckpt = ensemble_dir / f"best_finetune_weights_{int(ranked[i])}.msgpack"
+        ckpt = ensemble_dir / f"best_finetune_weights_{int(ranked[i])}{BACKBONES[backbone]}"
         if not ckpt.is_file():
             print(
                 f"{SFM.failure} Ensemble checkpoint not found: {ckpt}\n"
@@ -231,7 +259,7 @@ def main(args=None, argv=None, device: DeviceLike = None):
             )
             sys.exit(1)
         print(f"Loading classifier {i}...", flush=True)
-        ensemble += load_ensemble([ckpt], resnet_inp_shape, last_resnet_layer, device=dev)
+        ensemble += load_ensemble([ckpt], resnet_inp_shape, last_resnet_layer, device=dev, backbone=backbone)
         print(f"... Classifier {i} loaded.", flush=True)
 
     print("All classifiers loaded.", flush=True)
