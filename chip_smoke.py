@@ -854,8 +854,8 @@ def ensemble_work(members, x: torch.Tensor) -> dict:
     hooks = [m.register_forward_hook(count) for m in members[0].modules()
              if isinstance(m, (nn.Conv2d, nn.Linear))]
     try:
-        with torch.no_grad():
-            out = members[0](x)
+        with torch.no_grad():  # eagerly: a graph's replay calls no module's hooks
+            out = members[0].head(members[0].features(x))
     finally:
         for h in hooks:
             h.remove()

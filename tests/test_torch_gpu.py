@@ -443,14 +443,15 @@ def test_analyze_branches_launches_the_down_block(cuda):
     assert db.launches == before and res3.rows[0][1][0] >= 1
 
 
-def _shipped_member(dtype, device, last_layer="conv4_block6_out", size=256):
+def _shipped_member(dtype, device, last_layer="conv4_block6_out", size=256, members=(0,)):
+    """The shipped ``members`` as the tool loads them (captured on the card)."""
     from pathlib import Path
 
     from tmat_torch.tools import compute_inv_depth as inv
 
     ens = Path(__file__).resolve().parents[1] / "model_training" / "best_ensemble"
-    return inv.load_ensemble([ens / "best_finetune_weights_0.msgpack"], (size, size, 3), last_layer,
-                             dtype, device)
+    return inv.load_ensemble([ens / f"best_finetune_weights_{i}.msgpack" for i in members], (size, size, 3),
+                             last_layer, dtype, device)
 
 
 @pytest.mark.gpu
@@ -489,6 +490,112 @@ def test_predict_stack_on_the_card(cuda):
         out = inv.predict_stack(stack, card, (64, 64))
         assert out.dtype == np.float32 and out.shape == (1, 1 if stack.ndim == 2 else len(stack), 1)
         np.testing.assert_allclose(out, inv.predict_stack(stack, host, (64, 64)), atol=1e-4, rtol=0)
+
+
+def _invasion_inputs(n, size, device):
+    """(n, size, size, 3) classifier inputs: six synthetic invasion slices,
+    not invaded and invaded in turn, cycled, each row with noise of its own."""
+    from tmat_torch.models.preprocess import prep_inv_depth_imgs_hybrid
+    from tmat_torch.models.synthetic import synth_invasion_image
+
+    rng = np.random.RandomState(9)
+    stack = np.stack([synth_invasion_image(rng, size, invaded=bool(z % 2)) for z in range(6)])
+    x = prep_inv_depth_imgs_hybrid(stack, (size, size), device)
+    g = torch.Generator(device=device).manual_seed(n)
+    return x[torch.arange(n) % 6] + 4 * torch.randn(n, size, size, 3, device=device, generator=g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_resnet_graph_replay_equals_the_eager_forward_on_the_card(cuda, dtype):
+    """A shipped member as the tool loads it replays its features from the
+    one CUDA graph of ``GRAPH_BATCH`` slices captured at load: a batch of 1
+    to 19 takes ``ceil(B / GRAPH_BATCH)`` replays, and its features and
+    probabilities equal, bit for bit, the eager features of its chunks
+    padded with zeros to the graph's batch and the head over them; no new
+    capture."""
+    from tmat_torch.models.graphed import GRAPH_BATCH as n
+
+    (card,) = _shipped_member(dtype, cuda)
+    graph = card._graph
+    assert graph is not None and graph[1].shape == (n, 256, 256, 3)
+    inputs = _invasion_inputs(19, 256, cuda)
+    with torch.no_grad():
+        for b in range(1, 20):
+            x = inputs[:b]
+            assert card.replays(x) == -(-b // n)
+            chunks = [x[i:i + n] for i in range(0, b, n)]
+            eager = torch.cat([card.features(torch.cat([c, c.new_zeros(n - len(c), *c.shape[1:])]))[:len(c)]
+                               for c in chunks])
+            assert eager.dtype == torch.float32 and torch.equal(card.pooled(x), eager)
+            probs = card(x)
+            assert probs.shape == (b, 1) and torch.equal(probs, torch.sigmoid(card.head(eager)))
+    assert len(set(probs.flatten().tolist())) > 1
+    assert card._graph is graph
+
+
+@pytest.mark.gpu
+def test_predict_rows_replays_the_resnet_members_at_any_depth_on_the_card(cuda):
+    """A 2-D image and stacks of 3, 8 and 11 synthetic invasion slices (one
+    replay padded, one whole, two) through ``predict_rows`` with two shipped
+    members as the tool loads them on the card in float32, TF32 off, against
+    the same members run eagerly on the card and on the CPU: member
+    probabilities within ``test_resnet_on_the_card_matches_the_cpu``'s 1e-4,
+    rows within it and their 4 decimals; the graphs captured at load serve
+    every depth."""
+    from tmat_torch.models.synthetic import synth_invasion_image
+    from tmat_torch.tools import compute_inv_depth as inv
+
+    card = _shipped_member(torch.float32, cuda, members=(0, 1))
+    eager = _shipped_member(torch.float32, cuda, members=(0, 1))
+    for m in eager:
+        m._graph = None
+    host = _shipped_member(torch.float32, "cpu", members=(0, 1))
+    graphs = [m._graph for m in card]
+    rng = np.random.RandomState(10)
+    slices = np.stack([synth_invasion_image(rng, 300, invaded=bool(z % 3)) for z in range(11)])
+    stacks = [("S1", slices[0]), ("S3", slices[:3]), ("S8", slices[3:]), ("S11", slices)]
+    got = inv.predict_rows(stacks, card, (256, 256), 0.5)
+    ids = [f"{sid}_z{z}" for sid, s in stacks for z in range(1 if s.ndim == 2 else len(s))]
+    assert [r[inv.ID_COL] for r in got] == ids
+    want = inv.predict_rows(stacks, eager, (256, 256), 0.5)
+    host_probs = [inv.predict_stack(s, host, (256, 256)) for _, s in stacks]
+    host_rows = [r for (sid, _), p in zip(stacks, host_probs) for r in inv.stack_rows(sid, p, 0.5)]
+    for other in (want, host_rows):
+        assert [r[inv.ID_COL] for r in other] == ids
+        np.testing.assert_allclose([r[inv.PROB_COL] for r in got], [r[inv.PROB_COL] for r in other],
+                                   atol=1.5e-4, rtol=0)
+    for (_, s), p_host in zip(stacks, host_probs):
+        p_card = inv.predict_stack(s, card, (256, 256))
+        np.testing.assert_allclose(p_card, inv.predict_stack(s, eager, (256, 256)), atol=1e-4, rtol=0)
+        np.testing.assert_allclose(p_card, p_host, atol=1e-4, rtol=0)
+    assert len({r[inv.PROB_COL] for r in got}) > 3
+    assert all(m._graph is g for m, g in zip(card, graphs)) and all(g is not None for g in graphs)
+
+
+@pytest.mark.gpu
+def test_captured_members_share_one_pool_and_keep_their_rows(cuda):
+    """Two shipped ResNet50 members and a SwinV2 member captured after them
+    share one memory pool; replayed in turn, the SwinV2 member's replay
+    between them, each ResNet50 member gives its own eager probabilities at
+    the graph's batch, bit for bit."""
+    from tmat_torch.models import swin
+    from tmat_torch.models.graphed import GRAPH_BATCH
+
+    card = _shipped_member(torch.bfloat16, cuda, members=(0, 1))
+    tiny = {"patch": 4, "embed_dim": 32, "depths": (2, 2, 2, 2), "heads": (1, 2, 4, 8), "window": 4,
+            "mlp_ratio": 4, "cpb_hidden": 64}
+    other = swin.build_swinv2_tl((64, 64, 3), tiny, torch.bfloat16, 1, cuda).capture()
+    assert len({m._graph[0].pool() for m in (*card, other)}) == 1
+    x = _invasion_inputs(GRAPH_BATCH, 256, cuda)
+    y = torch.randn(GRAPH_BATCH, 64, 64, 3, device=cuda)
+    with torch.no_grad():
+        want = [torch.sigmoid(m.head(m.features(x))) for m in card]
+        first = card[0](x)
+        other(y)
+        second = card[1](x)
+    assert torch.equal(first, want[0]) and torch.equal(second, want[1])
+    assert not torch.equal(first, second)
 
 
 # the CPU tests' sizes, and a downsample whose tiles load their rows in chunks

@@ -190,3 +190,32 @@ def test_gui_namespace(tmp_path, model_dir):
     ns.config = str(cfg)
     tool.main(args=ns, device="cpu")
     assert len(_rows(tmp_path / "out" / CSV_NAME)) == 2
+
+
+def test_load_ensemble_on_the_cpu_captures_nothing_and_runs_eagerly(model_dir):
+    """On the CPU ``load_ensemble`` captures no graph (``capture`` is a no-op
+    there): each member counts one ``eager_forwards`` in its stack's
+    ``dispatch`` span and no ``graph_replays``, and its probabilities are
+    those of the forward before the features and the head were split, bit
+    for bit."""
+    import torch
+
+    from tmat_torch.core.profiling import StageTimer, recorded_spans, traced
+    from tmat_torch.models.preprocess import prep_tail
+
+    mt, _ = model_dir
+    paths = [mt / "best_ensemble" / f"best_finetune_weights_{i}.msgpack" for i in range(2)]
+    ens = tool.load_ensemble(paths, (64, 64, 3), "conv4_block6_out", device="cpu")
+    assert all(m._graph is None and m.capture() is m and m._graph is None for m in ens)
+    stack = np.random.RandomState(3).randint(0, 255, (3, 80, 80)).astype(np.uint8)
+    with traced(True, "cpu_eager"):
+        probs = tool.dispatch_stack(stack, ens, (64, 64), StageTimer())
+    spans = {s.name: s.counts for s in recorded_spans() if s.item == "cpu_eager"}
+    assert spans == {"host_resize": None, "dispatch": {"eager_forwards": len(ens)}}
+    x = prep_tail(tool.resize_stack(stack, (64, 64), torch.device("cpu")))
+    assert all(m.replays(x) == 0 for m in ens)
+    with torch.no_grad():
+        for m, p in zip(ens, probs):
+            feats = m.base(x.permute(0, 3, 1, 2).to(m.dtype)).mean(dim=(2, 3))
+            assert torch.equal(p, torch.sigmoid(m.head(feats.float())))
+    assert probs.shape == (2, 3, 1) and not torch.equal(probs[0], probs[1])

@@ -4,8 +4,10 @@ Spans are kept only while a ``torch.profiler`` records on the thread that
 called the tool's entry point; a tiny 3-well plate and a tiny invasion
 ensemble show their names, parents, threads and items; the counters
 ``gmm_iters`` and ``skeleton_passes`` against independent counts of the
-loops they count; a SwinV2 member's ``swin_forward`` span with its
-``attn_calls`` and ``attn_windows``, and ``swin_tables`` at load;
+loops they count; a member's ``eager_forwards`` (and, on the card, its
+``graph_replays``) in its stack's ``dispatch``; a SwinV2 member's
+``swin_forward`` span with its ``attn_calls`` and ``attn_windows``, and
+``swin_tables`` at load;
 ``predict_rows`` with a timer never synchronises; the spans' clock is
 ``time.perf_counter`` and ``maybe_profile`` writes them into its trace on
 the trace's clock. All on the CPU, a few seconds.
@@ -212,7 +214,9 @@ def test_predict_rows_spans_and_no_synchronise(monkeypatch, ensemble, timer):
         mine = [s for s in spans if s.item == sid]
         assert sorted(s.name for s in mine) == ["dispatch", "fetch_wait", "host_resize"]
         assert all(s.parent is None and s.thread == threading.get_native_id() for s in mine)
-        assert all(s.counts is None for s in mine)  # the CPU resize launches no kernel
+        # the CPU resize launches no kernel; the CPU member runs eagerly
+        assert {s.name: s.counts for s in mine} == {"host_resize": None, "dispatch": {"eager_forwards": 1},
+                                                    "fetch_wait": None}
     if given is not None:
         assert given.counts == {"host_resize": 3, "dispatch": 3, "fetch_wait": 3}
 
@@ -220,7 +224,8 @@ def test_predict_rows_spans_and_no_synchronise(monkeypatch, ensemble, timer):
 @pytest.mark.gpu
 def test_predict_rows_counts_the_resize_launch_on_the_card(ensemble):
     """On the card each stack's ``host_resize`` span holds its one launch of
-    the resize kernel, and no other span counts one."""
+    the resize kernel, and no other span counts one; the member, built and
+    not captured, runs eagerly."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the resize kernel has no CPU or interpret mode")
     from tmat_torch.ops import resize_lanczos4 as rl
@@ -234,7 +239,30 @@ def test_predict_rows_counts_the_resize_launch_on_the_card(ensemble):
     spans = recorded_spans()
     for sid, _ in stacks:
         mine = {s.name: s.counts for s in spans if s.item == sid}
-        assert mine == {"host_resize": {"resize_launches": 1}, "dispatch": None, "fetch_wait": None}
+        assert mine == {"host_resize": {"resize_launches": 1}, "dispatch": {"eager_forwards": 1},
+                        "fetch_wait": None}
+
+
+@pytest.mark.gpu
+def test_predict_rows_counts_graph_replays_on_the_card(ensemble):
+    """On the card two captured members replay: each stack's ``dispatch``
+    span counts ``ceil(Z / 8)`` ``graph_replays`` a member (a 2-D image one)
+    and no ``eager_forwards``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: a CUDA graph captures and replays only on the card")
+    card = [build_resnet50_tl(1, (32, 32, 3), "conv2_block3_out", seed=s, device="cuda").capture()
+            for s in (1, 2)]
+    rng = np.random.RandomState(2)
+    stacks = [(f"S{z}", rng.randint(0, 255, (z, 40, 40)).astype(np.uint8)) for z in (3, 8, 11)]
+    stacks.append(("S1", rng.randint(0, 255, (40, 40)).astype(np.uint8)))
+    with _cpu_profile():
+        rows = inv.predict_rows(stacks, card, (32, 32), 0.5)
+    assert len(rows) == 3 + 8 + 11 + 1
+    spans = recorded_spans()
+    for sid, stack in stacks:
+        (dispatch,) = [s for s in spans if s.item == sid and s.name == "dispatch"]
+        replays = -(-(1 if stack.ndim == 2 else len(stack)) // 8)
+        assert dispatch.counts == {"graph_replays": len(card) * replays}
 
 
 SWIN_ARCH = {"patch": 4, "embed_dim": 32, "depths": (2, 2, 2, 2), "heads": (1, 2, 4, 8), "window": 4,
@@ -259,7 +287,8 @@ def test_swin_forward_span_counts_its_attention():
         assert len(fwd) == len(members) and all(s.parent == dispatch.id for s in fwd)
         assert all(s.thread == threading.get_native_id() for s in fwd)
         assert [s.counts for s in fwd] == [{"attn_calls": 8, "attn_windows": len(stack) * SWIN_WINDOWS}] * 2
-        assert dispatch.counts == {"attn_calls": 16, "attn_windows": 2 * len(stack) * SWIN_WINDOWS}
+        assert dispatch.counts == {"attn_calls": 16, "attn_windows": 2 * len(stack) * SWIN_WINDOWS,
+                                   "eager_forwards": 2}
 
 
 def test_swin_tables_are_a_span_at_load():

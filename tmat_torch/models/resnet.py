@@ -13,9 +13,16 @@ convolution pads nothing (Flax SAME for a 1x1 kernel, even or odd size).
 
 The base runs in the model's compute dtype (bfloat16 on CUDA, channels
 last); the pooled features are cast to float32 for the head, as the JAX
-model does. ``ensemble_forward`` runs k members on one input: the
+model does. A member loaded on CUDA by the tool
+(``tools/compute_inv_depth.py::load_ensemble``) replays its features (the
+NHWC view, the cast, the base and the pool) from one CUDA graph of
+``GRAPH_BATCH`` slices captured at load, in the memory pool the process's
+members share (``models/graphed.py``); the head runs eagerly on the graph's
+output. A member built by ``build_resnet50_tl``, and any member on the CPU,
+runs eagerly. ``ensemble_forward`` runs k members on one input: the
 counterpart of the JAX package's vmapped ``make_ensemble_apply``; it also
-runs ``models/swin.py``'s members.
+runs ``models/swin.py``'s members, and counts each member's graph replays
+(``graph_replays``) or eager forward (``eager_forwards``).
 
 ``TrainableResNet50TL`` is the Flax module with BatchNorm unfolded, for
 training (``models/train.py``): Flax names, layouts and init, float32.
@@ -34,7 +41,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tmat_torch.core.profiling import count
 from tmat_torch.device import DeviceLike, resolve_device
+from tmat_torch.models.graphed import GraphedFeatures
 from tmat_torch.models.layers import BatchNorm, Conv, flax_variables, init_kernels
 from tmat_torch.models.params_io import RESNET_BN_EPS, from_flax_resnet_variables
 
@@ -116,28 +125,33 @@ class ResNet50Base(nn.Module):
         return x
 
 
-class ResNet50TL(nn.Module):
+class ResNet50TL(GraphedFeatures):
     """Truncated ResNet50 + GAP + dense head. Input (B, h, w, 3) float32,
-    output (B, n_outputs) float32."""
+    output (B, n_outputs) float32. ``input_shape`` is the input a captured
+    graph takes (``capture``; Keras' default)."""
 
     def __init__(self, n_outputs: int = 1, last_layer: str = "conv5_block3_out",
-                 output_act: str = "sigmoid"):
+                 output_act: str = "sigmoid", input_shape: Tuple[int, int, int] = (224, 224, 3)):
         super().__init__()
         if output_act not in ("sigmoid", "softmax", "linear", None):
             raise ValueError(f"unsupported output activation {output_act!r}")
         self.base = ResNet50Base(last_layer)
         self.head = nn.Linear(self.base.out_channels, n_outputs)
         self.output_act = output_act
+        self.input_shape = tuple(input_shape)
 
     @property
     def dtype(self) -> torch.dtype:
         return self.base.conv1.weight.dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, h, w, 3) -> (B, C) float32: the pooled features, eagerly."""
         # NHWC -> NCHW view: the strides of channels_last, no copy
         x = x.permute(0, 3, 1, 2).to(self.dtype)
-        feats = self.base(x).mean(dim=(2, 3))  # accumulated in float32
-        y = self.head(feats.float())
+        return self.base(x).mean(dim=(2, 3)).float()  # accumulated in float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.head(self.pooled(x))
         if self.output_act == "sigmoid":
             return torch.sigmoid(y)
         if self.output_act == "softmax":
@@ -267,7 +281,7 @@ def build_resnet50_tl(
     if init not in ("random", "zeros"):
         raise ValueError(f"unknown init {init!r}")
     dev = resolve_device(device)
-    model = ResNet50TL(n_outputs, base_last_layer, output_act).eval().requires_grad_(False)
+    model = ResNet50TL(n_outputs, base_last_layer, output_act, img_shape).eval().requires_grad_(False)
     model.to(dev)
     if init == "random":
         # the activation draws nothing: the trainable twin takes no None
@@ -295,13 +309,19 @@ def load_member(model: ResNet50TL, weights) -> ResNet50TL:
 
 
 @torch.no_grad()
-def ensemble_forward(members: Sequence[nn.Module], x: torch.Tensor, timer=None) -> torch.Tensor:
+def ensemble_forward(members: Sequence[GraphedFeatures], x: torch.Tensor, timer=None) -> torch.Tensor:
     """(k, B, n_outputs) float32: each member (of any backbone: ResNet50TL,
     ``swin.SwinV2TL``) on the same (B, h, w, 3) input, in turn on the
-    current stream. A member whose class names a ``span`` runs inside that
-    stage of ``timer`` (a ``core.profiling.StageTimer``), if one is given."""
+    current stream, counting its graph replays or its eager forward (module
+    doc). A member whose class names a ``span`` runs inside that stage of
+    ``timer`` (a ``core.profiling.StageTimer``), if one is given."""
     outs = []
     for m in members:
+        replays = m.replays(x)
+        if replays:
+            count("graph_replays", replays)
+        else:
+            count("eager_forwards")
         span = getattr(m, "span", None)
         if span is None or timer is None:
             outs.append(m(x))

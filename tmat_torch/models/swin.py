@@ -51,20 +51,15 @@ kernel, else its math path.
 
 A member loaded on CUDA (``load_member``, the tool's path) replays its
 features (all but the head) from one CUDA graph of ``GRAPH_BATCH`` slices,
-captured at load (``capture``): the host then launches a copy, a graph and
-the head instead of ~900 kernels, which it issued more slowly than the card
-ran them. A stack of any depth takes ``ceil(Z / GRAPH_BATCH)`` replays, the
-last one's spare rows holding whatever they held (each image is computed
-on its own, so they change no other row), so no depth captures or
-synchronises inside ``predict_rows``. The members of a process share one
-memory pool for their graphs' activations: a replay's output is read (the
-head, or a copy) before another replay is queued on the stream. The
-blocks' Python (and ``window_attention``) runs only while capturing.
-Each replay, or an eager forward (the CPU, or a member built and not
-captured), counts ``attn_calls`` (its blocks) and ``attn_windows`` (the
-windows its blocks pass through the attention, spare rows included)
-(``core/profiling.py``); a member's forward is the stage ``swin_forward``
-of the timer ``resnet.ensemble_forward`` is given.
+captured at load, in the memory pool the process's members share
+(``models/graphed.py``, as the ResNet50 members do): the host launches a
+copy, a graph and the head instead of ~900 kernels. The blocks' Python (and
+``window_attention``) runs only while capturing. Each replay, or an eager
+forward (the CPU, or a member built and not captured), counts
+``attn_calls`` (its blocks) and ``attn_windows`` (the windows its blocks
+pass through the attention, spare rows included) (``core/profiling.py``);
+a member's forward is the stage ``swin_forward`` of the timer
+``resnet.ensemble_forward`` is given.
 
 Checkpoints are ``torch.save`` of the module's state dict
 (``save_member``), which keeps each block's ``relative_position_index`` as
@@ -76,7 +71,6 @@ from __future__ import annotations
 
 import math
 import re
-import weakref
 from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -86,6 +80,7 @@ from torch import nn
 
 from tmat_torch.core.profiling import StageTimer, count
 from tmat_torch.device import DeviceLike, resolve_device
+from tmat_torch.models.graphed import GRAPH_BATCH, GraphedFeatures  # noqa: F401 (GRAPH_BATCH re-exported)
 
 BACKBONE = "swinv2_base_window16_256"
 SWINV2_B = {"patch": 4, "embed_dim": 128, "depths": (2, 2, 18, 2), "heads": (4, 8, 16, 32), "window": 16,
@@ -94,10 +89,6 @@ LN_EPS = 1e-5
 MASK = -100.0  # the shift mask's logit between tokens of different regions
 MAX_LOGIT_SCALE = math.log(100.0)
 INIT_STD = 0.02  # seeded weights: truncated normal (timm's cut at ±2), as the published init
-GRAPH_BATCH = 8  # slices a graph replay: the depth of the invasion traffic's stacks
-# the members with a captured graph: a new one shares a live one's memory pool
-# (a pool lasts as long as a graph in it)
-_CAPTURED: "weakref.WeakSet[SwinV2TL]" = weakref.WeakSet()
 
 
 def relative_coords_table(window: int) -> torch.Tensor:
@@ -279,7 +270,7 @@ class PatchEmbed(nn.Module):
         return self.norm(y.permute(0, 2, 3, 1).reshape(y.shape[0], -1, y.shape[1]))
 
 
-class SwinV2TL(nn.Module):
+class SwinV2TL(GraphedFeatures):
     """SwinV2 backbone + GAP + dense head. Input (B, h, w, 3) float32,
     output (B, n_outputs) float32 probabilities; ``logits`` before the
     sigmoid."""
@@ -305,8 +296,7 @@ class SwinV2TL(nn.Module):
         # an image's windows through the attention, over all blocks
         self.n_blocks = len(self.blocks())
         self.windows_per_image = sum(blk.order.numel() // blk.window**2 for blk in self.blocks())
-        self.img_size = img_size
-        self._graph: Optional[tuple] = None  # (graph, its input, its output) once captured
+        self.input_shape = (img_size, img_size, 3)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -331,50 +321,12 @@ class SwinV2TL(nn.Module):
             x = stage(x)
         return self.norm(x).mean(dim=1, dtype=torch.float32)
 
-    @torch.no_grad()
-    def capture(self) -> "SwinV2TL":
-        """On CUDA, ``features`` of ``GRAPH_BATCH`` slices as a CUDA graph in
-        the memory pool of the device's other members (module doc); a no-op
-        elsewhere."""
-        dev = self.patch_embed.proj.weight.device
-        if dev.type != "cuda":
-            return self
-        static_x = torch.zeros(GRAPH_BATCH, self.img_size, self.img_size, 3, device=dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self.features(static_x)  # first calls pick their kernels outside the capture
-        torch.cuda.current_stream(dev).wait_stream(side)
-        pool = next((m._graph[0].pool() for m in _CAPTURED if m._graph[1].device == dev), None)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=pool):
-            static_feats = self.features(static_x)
-        self._graph = graph, static_x, static_feats
-        _CAPTURED.add(self)
-        return self
-
-    def _replayed(self, x: torch.Tensor) -> torch.Tensor:
-        """``features(x)`` from ``ceil(B / GRAPH_BATCH)`` replays (module
-        doc). For one replay the returned tensor is the graph's own, which
-        the next replay of any member may overwrite, in stream order."""
-        graph, static_x, static_feats = self._graph
-        parts = []
-        for i in range(0, x.shape[0], GRAPH_BATCH):
-            part = x[i:i + GRAPH_BATCH]
-            static_x[:len(part)].copy_(part)
-            graph.replay()
-            count("attn_calls", self.n_blocks)
-            count("attn_windows", GRAPH_BATCH * self.windows_per_image)
-            out = static_feats[:len(part)]
-            parts.append(out.clone() if x.shape[0] > GRAPH_BATCH else out)
-        return parts[0] if len(parts) == 1 else torch.cat(parts)
+    def count_features(self, batch: int) -> None:
+        count("attn_calls", self.n_blocks)
+        count("attn_windows", batch * self.windows_per_image)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        if self._graph is not None and x.is_cuda:
-            return self.head(self._replayed(x))
-        count("attn_calls", self.n_blocks)
-        count("attn_windows", x.shape[0] * self.windows_per_image)
-        return self.head(self.features(x))
+        return self.head(self.pooled(x))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.sigmoid(self.logits(x))

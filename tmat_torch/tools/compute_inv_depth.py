@@ -23,18 +23,23 @@ Each raw stack is uploaded once and everything runs on the device: the
 Lanczos-4 resize (``ops/resize_lanczos4.py``, a CUDA kernel on the card,
 its plain version on the CPU; the function of ``models/preprocess.py::
 host_resize``), the prep tail and the members' forwards, one after another
-on one stream. At most ``MAX_IN_FLIGHT`` stacks are queued on the device
-before the oldest is fetched, so the host loads and dispatches the next
-stacks while the device works (``predict_rows``). The file-free core is
-``predict_stack``.
+on one stream. On the card every member loaded here, of either backbone,
+replays its features from one CUDA graph of 8 slices captured at load
+(``models/graphed.py``), ``ceil(Z/8)`` replays a stack, and runs its head
+eagerly; on the CPU the members run eagerly. At most ``MAX_IN_FLIGHT``
+stacks are queued on the device before the oldest is fetched, so the host
+loads and dispatches the next stacks while the device works
+(``predict_rows``). The file-free core is ``predict_stack``.
 
 Stages, all by the host clock (none calls a synchronise): ``host_resize``,
 the host's share of the resize (the upload of the raw stack, a blocking
 copy that starts once the work queued before it is done, and the kernel's
 launch; on the CPU, the whole resize), ``dispatch`` (the prep
-tail and the members' forwards as the host enqueues them; inside it, a
-SwinV2 member's forward is the stage ``swin_forward``, which counts its
-attention calls and windows, ``attn_calls`` and ``attn_windows``) and
+tail and the members' forwards as the host enqueues them, counting each
+member's graph replays, ``graph_replays``, or its eager forward,
+``eager_forwards``; inside it, a SwinV2 member's forward is the stage
+``swin_forward``, which counts its attention calls and windows,
+``attn_calls`` and ``attn_windows``) and
 ``fetch_wait`` (the host blocked in the copy of a stack's probabilities
 back). While a ``torch.profiler`` records on the thread that calls
 ``predict_rows``, they are also spans of their stack
@@ -105,7 +110,8 @@ def load_ensemble(checkpoints: Sequence[Path], img_shape: Tuple[int, int, int], 
                   backbone: str = "resnet50") -> List[torch.nn.Module]:
     """One classifier per checkpoint of ``backbone`` (``BACKBONES``; the
     module doc), on ``device`` (None = CUDA), in ``dtype`` (default:
-    bfloat16 on CUDA, float32 on the CPU). ``last_layer`` is ResNet50's."""
+    bfloat16 on CUDA, float32 on the CPU), its features captured as a CUDA
+    graph on CUDA (``models/graphed.py``). ``last_layer`` is ResNet50's."""
     if backbone not in BACKBONES:
         raise ValueError(f"unknown backbone {backbone!r}: one of {sorted(BACKBONES)}")
     dev = resolve_device(device)
@@ -116,7 +122,7 @@ def load_ensemble(checkpoints: Sequence[Path], img_shape: Tuple[int, int, int], 
             members.append(swin.load_member(ckpt, img_shape, dtype, dev))
             continue
         model = build_resnet50_tl(1, img_shape, last_layer, dtype=dtype, init="zeros", device=dev)
-        members.append(load_member(model, from_flax_resnet_variables(load_variables(ckpt))))
+        members.append(load_member(model, from_flax_resnet_variables(load_variables(ckpt))).capture())
     return members
 
 

@@ -5,9 +5,11 @@
 Loads the shipped ensemble (3 members ranked by history, bf16) and one
 random uint8 (8, 1024, 1024) stack, then prints one JSON line each for:
 the host Lanczos-4 resize; the upload (pinned and pageable) and the prep
-tail, apart; the ensemble's base forward by CUDA events in channels-last
-and in NCHW layout, each with cuDNN's autotuner off and on; and the CUDA
-kernels of one channels-last forward by ``torch.profiler``, largest first.
+tail, apart; the ensemble's forward as the tool runs it (each member's
+features replayed from its CUDA graph, the head eager), then its base
+forward eagerly in channels-last and in NCHW layout, each with cuDNN's
+autotuner off and on, by CUDA events; and the CUDA kernels of one eager
+channels-last forward by ``torch.profiler``, largest first.
 The last line is the card's name and power limit.
 """
 
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from tmat_torch.models.preprocess import host_resize, prep_tail
+from tmat_torch.models.resnet import ensemble_forward
 from tmat_torch.tools import compute_inv_depth as inv
 from tmat_torch.tools.timing import card_line, cuda_ms
 
@@ -66,7 +69,10 @@ def main(argv=None) -> int:
         "prep_tail_ms": host_ms(lambda: prep_tail(pinned.to(dev)), args.reps),
     }), flush=True)
 
-    x = prep_tail(host.to(dev)).permute(0, 3, 1, 2).to(torch.bfloat16)
+    x_in = prep_tail(host.to(dev))
+    replayed_ms = cuda_ms(lambda: ensemble_forward(ens, x_in), args.reps)
+    # the layouts below give the bases new weight tensors: no graph replays after them
+    x = x_in.permute(0, 3, 1, 2).to(torch.bfloat16)
     layouts = {"channels_last": x.contiguous(memory_format=torch.channels_last),
                "nchw": x.contiguous()}
     forwards = {}
@@ -82,7 +88,8 @@ def main(argv=None) -> int:
         torch.backends.cudnn.benchmark = False
         for m in ens:
             m.base.to(memory_format=torch.channels_last)
-        print(json.dumps({"stage": "forward", "members": len(ens), "batch": list(x.shape), **forwards}),
+        print(json.dumps({"stage": "forward", "members": len(ens), "batch": list(x.shape),
+                          "replayed_ms": replayed_ms, **forwards}),
               flush=True)
 
         from torch.profiler import ProfilerActivity, profile
